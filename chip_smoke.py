@@ -1,23 +1,40 @@
-"""Smoke test of gs2pc_torch on one CUDA GPU: builds the kernels, holds each
-against its plain PyTorch twin, runs the production conversion end to end
-through ``gs2pc_torch.cli.main`` and checks what it wrote.
+"""Smoke test of gs2pc_torch on CUDA GPUs: builds the kernels, holds each
+against its plain PyTorch twin in every mode, runs the production
+conversion end to end through ``gs2pc_torch.cli.main``, runs the three
+multi-device sweeps at full width, and checks what they produce.
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failure exits non-zero):
-  1. device   nvidia-smi name and power limit, torch's device name
-  2. build    nvcc build + load of gs2pc_torch/csrc/*.cu
-  3. K2       pair expansion vs twin: 200k Gaussians, one 1280x720 camera,
-              sorted keys and gids equal exactly (surface and AdR modes)
-  4. K1       tile blend vs twin: 20k Gaussians at 256x192, vignette mask,
-              surface pass, compact tables on and off
-  5. e2e      bench.py's capture (3M Gaussians, 16 cameras at 1280x720,
-              masks) -> 10M points with surface distances on
-  6. timing   K1 and K2 on camera 0 of that scene, the shape the main path
-              gives them: held against their twins with the bounds of
-              phases 3-4, then timed against them
+Phases (each prints one line or more; any failure exits non-zero):
+  1. device    nvidia-smi name and power limit, torch's device name
+  2. build     nvcc build + load of gs2pc_torch/csrc/*.cu, g++ build of the
+               PLY writer
+  3. K2        pair expansion vs twin: 200k Gaussians, one 1280x720 camera,
+               sorted keys and gids equal exactly (surface and AdR modes)
+  4. K1        tile blend vs twin: 20k Gaussians at 256x192, vignette mask,
+               surface pass, compact tables on and off
+  5. K1 modes  the depth-slab modes vs twin at the same shape: no stop (with
+               the final T), a seeded starting-T map, a surface depth map
+               under both surface_compact settings, compact on and off
+  6. e2e       the capture of gs2pc_torch.utils.capture (3M Gaussians, 16
+               cameras at 1280x720, masks) -> 10M points with surface
+               distances on, through the native PLY writer; with more than
+               one card, also --num_devices <cards> --shard_axis gauss
+  7. timing    K1 and K2 on camera 0 of that scene, the shape the main path
+               gives them: held against their twins with the bounds of
+               phases 3-4, then timed against them
+  8. slab      K1's three depth-slab passes of slab 1 of 4 on camera 0 of
+               that scene (the real prefix and the real combined depth map),
+               held against the twin and timed
+  9. sharded   the e2e scene's first 4 cameras at 1280x720, masks, surface
+               pass on, run cap above the longest tile run: the depth-slab
+               and 2-D sweeps on [cuda:0] * 4 through pipeline.run_render_sweep
+               (the --shard_axis gauss|both dispatch) and the camera sweep on
+               [cuda:0] * 2 against the single-device sweep
 The line before the last is the kernels' JSON record (max_abs_err at the
-shape of phase 6), the last line the device record.
+shape of phases 7-8, launches from the e2e run for the main mode and from
+the depth-slab sweep of phase 9 for the others), the last line the device
+record.
 """
 
 from __future__ import annotations
@@ -28,23 +45,49 @@ import shutil
 import subprocess
 import sys
 import time
+from unittest import mock
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 N_E2E_GAUSSIANS = 3_000_000
-N_E2E_CAMERAS = 16  # bench.py's north star has 45; cut so the build and checks fit
+N_E2E_CAMERAS = 16  # the capture's north star has 45; cut so the build and checks fit
 E2E_WIDTH, E2E_HEIGHT = 1280, 720
 N_POINTS = 10_000_000
+N_SHARD_CAMERAS = 4
+N_SLABS = 4
 
-# Twin bounds.  Sequential (kernel) vs cumprod (twin) transmittance and
-# expf vs torch.exp round differently, so floats agree to a few ulps of
-# the accumulated sums; a near-tie in a pair's max contribution can pick
-# another pixel, so best colour is held on a share of the Gaussians.
+# Twin bounds.  Kernel and twin run the same float operations in the same
+# order; expf and torch.exp may round differently, so floats are held to a
+# few ulps of the accumulated sums; a near-tie in a pair's max contribution
+# can pick another pixel, so best colour is held on a share of the Gaussians.
 TOL_IMAGE = 1e-5
 TOL_CONTRIB = 1e-6
 TOL_SURF = 1e-5
 TOL_BEST = 1e-5
 BEST_SHARE = 0.999
+
+# Sharded sweeps vs one device (tests/test_sharding.py's bounds): f32
+# summation order, argmax-pixel ties for the colour.
+TOL_SHARD_CONTRIB = 1e-5
+TOL_SHARD_SURF = 1e-4
+TOL_SHARD_COLOUR = 1e-3
+SHARD_COLOUR_SHARE = 0.97
+
+# Roofline of one H100 SXM (NVIDIA's data sheet): device memory and fp32
+# outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+# K1's float operations per streamed (pair, pixel): power 6, exp ~8,
+# alpha / stop test 4, colour / depth / inverse-depth sums 10, T 2; and per
+# (pair, pixel) of the surface pass: subtract, abs, min.
+K1_BLEND_FLOPS = 30
+K1_SURF_FLOPS = 3
+TPX = 256
+
+# K1's modes as they appear in the kernels record: blend_kernel.mode_of name.
+K1_MODES = ("early_stop=False", "init_trans", "ed_override")
+# What the camera data-parallel sweep keeps exactly.
+EXACT = ("max_contribution", "colours", "min_surface_distance", "n_dropped")
 
 
 def fail(msg: str) -> None:
@@ -77,36 +120,83 @@ def scene_on_device(arrays, device):
 
 
 def camera_batch(n_cams, width, height, device, with_masks):
-    import bench
     from gs2pc_torch.camera import build_camera_batch
+    from gs2pc_torch.utils import capture
 
-    transforms, intr = bench.make_poses(n_cams, width, height)
+    transforms, intr = capture.make_poses(n_cams, width, height)
     masks = None
     if with_masks:
-        m = bench.vignette_mask(width, height)
+        m = capture.vignette_mask(width, height)
         masks = {name: m for name in transforms}
     return build_camera_batch(transforms, intr, masks=masks, device=device)
 
 
-def blend_inputs(g, cam, cfg):
+def blend_inputs(g, cam, cfg, **modes):
     """K1's inputs for one camera, built by the port's own stages (surface on)."""
     from gs2pc_torch.ops import rasterize as R
     from gs2pc_torch.ops.projection import preprocess
 
     prep = preprocess(g.xyz, g.covariance_factors(), g.opacities, g.keep_mask, cam,
                       adaptive_radius=False)
-    args, kw, _ = R.blend_inputs(prep, g.colours, cam, cfg, calc_surface_distance=True)
+    args, kw, _ = R.blend_inputs(prep, g.colours, cam, cfg, calc_surface_distance=True,
+                                 **modes)
     return prep, args, kw
 
 
+def k1_bound(args, kw, res):
+    """(bound_ms, bound_by) of one K1 call: the larger of the bytes it must
+    move over HBM_BYTES_PER_S and its float operations over
+    FP32_FLOPS_PER_S, counted from this call's data.  Pairs: per tile the
+    chunks the blend entered x run_chunk, capped at the tile's count (the
+    surface pass: the same, or the whole count without surface_compact),
+    times 256 pixels.  Bytes, each read or written once: the gids of the
+    pairs read, the table rows of the Gaussians they name, starts / counts /
+    chunks per tile, the mask and the init_trans / ed_override maps, the
+    image (12 B), depth, inverse depth, final and live T per pixel, and 12 B
+    of per-Gaussian key and surface distance."""
+    import torch
+
+    table, sorted_gid, starts, counts, mask = args
+    counts, starts = counts.long(), starts.long()
+    blend = torch.minimum(res.chunks.long() * kw["run_chunk"], counts)
+    surf = torch.zeros_like(blend)
+    if kw["with_surface"]:
+        surf = blend if kw["surface_compact"] else counts
+    flops = TPX * (K1_BLEND_FLOPS * int(blend.sum()) + K1_SURF_FLOPS * int(surf.sum()))
+    read = torch.maximum(blend, surf)
+    delta = torch.zeros(sorted_gid.shape[0] + 1, dtype=torch.long, device=starts.device)
+    delta.index_add_(0, starts, torch.ones_like(starts))
+    delta.index_add_(0, starts + read, -torch.ones_like(starts))
+    pairs = sorted_gid[torch.cumsum(delta, 0)[:-1] > 0].long()
+    seen = torch.zeros(table.shape[0], dtype=torch.bool, device=table.device)
+    seen[pairs] = True
+    npx = kw["width_pad"] * kw["height_pad"]
+    maps = sum(kw.get(k) is not None for k in ("init_trans", "ed_override"))
+    n_bytes = (4 * pairs.numel() + 4 * table.shape[1] * int(seen.sum())
+               + 12 * starts.numel() + npx * ((mask is not None) + 4 * maps + 28)
+               + 12 * table.shape[0])
+    t_bytes, t_flops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"
+
+
+def k2_bound(prep, n_pairs: int):
+    """(bound_ms, bound_by) of K2 in full-rect mode, counted from pairs.cu's
+    arguments: per Gaussian xy 8 B, r_alpha_sq 4, rect_min 8, rect_max 8,
+    valid 1 and depth 4 read once; per pair an int64 key and an int32 gid
+    written.  Full-rect mode runs no circle test, so no float operations
+    bound it."""
+    n_bytes = 33 * prep.xy.shape[0] + 12 * n_pairs
+    return 1e3 * n_bytes / HBM_BYTES_PER_S, "bytes"
+
+
 def phase_k2(device):
-    import bench
     import torch
 
     from gs2pc_torch.ops import rasterize as R
     from gs2pc_torch.ops.projection import preprocess
+    from gs2pc_torch.utils import capture
 
-    g = scene_on_device(bench.make_scene_arrays(200_000, seed=1), device)
+    g = scene_on_device(capture.make_scene_arrays(200_000, seed=1), device)
     cams = camera_batch(1, E2E_WIDTH, E2E_HEIGHT, device, with_masks=False)
     cam = cams.at(0)
     cfg = R.TileConfig(width_pad=cams.width_pad, height_pad=cams.height_pad)
@@ -129,12 +219,13 @@ def compare_k1(k, t, label: str) -> float:
     """Hold K1's outputs ``k`` against its twin's ``t``; print one line, fail
     on any miss, return the largest float difference."""
     import numpy as np
+    import torch
 
     from gs2pc_torch.ops.blend import FLOAT_MAX
 
     errs = {
         name: float((getattr(k, name) - getattr(t, name)).abs().max())
-        for name in ("image", "depth", "invdepth", "contrib")
+        for name in ("image", "depth", "invdepth", "trans", "contrib")
     }
     fin_k, fin_t = k.surf_dist < FLOAT_MAX, t.surf_dist < FLOAT_MAX
     n_fin_diff = int((fin_k != fin_t).sum())
@@ -145,12 +236,13 @@ def compare_k1(k, t, label: str) -> float:
     bt = t.image.reshape(-1, 3)[t.best_pix][hit]
     off = int(((bk - bt).abs().amax(dim=1) > TOL_BEST).sum())
     n_hit = int(hit.sum())
-    bounds = dict(image=TOL_IMAGE, depth=TOL_IMAGE, invdepth=TOL_IMAGE,
+    chunks_equal = torch.equal(k.chunks, t.chunks)
+    bounds = dict(image=TOL_IMAGE, depth=TOL_IMAGE, invdepth=TOL_IMAGE, trans=TOL_IMAGE,
                   contrib=TOL_CONTRIB, surf_dist=TOL_SURF)
     shown = " ".join(f"{n}={v:.3g}(<={bounds[n]:g})" for n, v in errs.items())
     print(f"K1 vs twin, {label}: {shown} surf_dist finite on different Gaussians: "
           f"{n_fin_diff}; best_colour off on {off}/{n_hit} Gaussians "
-          f"(<= {1 - BEST_SHARE:.1%})", flush=True)
+          f"(<= {1 - BEST_SHARE:.1%}); chunks entered equal: {chunks_equal}", flush=True)
     if n_fin_diff:
         fail(f"K1 surface distances finite on different Gaussians ({label})")
     for n, v in errs.items():
@@ -158,28 +250,47 @@ def compare_k1(k, t, label: str) -> float:
             fail(f"K1 {n} differs from its twin by {v} > {bounds[n]} ({label})")
     if n_hit == 0 or off > (1 - BEST_SHARE) * n_hit:
         fail(f"K1 best colour differs on {off}/{n_hit} Gaussians ({label})")
+    if not chunks_equal:
+        fail(f"K1 entered other chunks than its twin ({label})")
     return max(errs.values())
 
 
 def phase_k1(device):
-    import bench
+    import numpy as np
     import torch
 
     from gs2pc_torch.ops import blend_kernel as B
     from gs2pc_torch.ops.rasterize import TileConfig
+    from gs2pc_torch.utils import capture
 
-    g = scene_on_device(bench.make_scene_arrays(20_000, seed=2), device)
+    g = scene_on_device(capture.make_scene_arrays(20_000, seed=2), device)
     cams = camera_batch(1, 256, 192, device, with_masks=True)
     cam = cams.at(0)
-    for compact, surface_compact in ((True, True), (False, True), (True, False)):
+    npx = cams.width_pad * cams.height_pad
+    r = np.random.default_rng(3)
+    t0 = r.uniform(0.0, 1.0, npx).astype(np.float32)
+    t0[r.uniform(size=npx) < 0.1] = 1e-5
+    t0 = torch.tensor(t0, device=device)
+    ed = torch.tensor(r.uniform(4.0, 7.0, npx).astype(np.float32), device=device)
+    cases = [(True, True, {}), (False, True, {}), (True, False, {})]
+    for compact in (True, False):
+        cases += [
+            (compact, True, dict(early_stop=False)),
+            (compact, True, dict(init_trans=t0)),
+            (compact, True, dict(init_trans=t0, ed_override=ed)),
+            (compact, False, dict(ed_override=ed)),
+        ]
+    for compact, surface_compact, modes in cases:
         cfg = TileConfig(width_pad=cams.width_pad, height_pad=cams.height_pad,
                          compact=compact, surface_compact=surface_compact)
-        _, args, kw = blend_inputs(g, cam, cfg)
+        _, args, kw = blend_inputs(g, cam, cfg, **modes)
         k = B.blend_tiles(*args, **kw)
         t = B.blend_tiles_torch(*args, **kw)
         torch.cuda.synchronize()
-        compare_k1(k, t, f"20k Gaussians 256x192, compact={compact} "
-                         f"surface_compact={surface_compact}")
+        mode = B.mode_of(modes.get("init_trans"), modes.get("ed_override"),
+                         modes.get("early_stop", True))
+        compare_k1(k, t, f"20k Gaussians 256x192, {mode} (maps: {sorted(modes)}), "
+                         f"compact={compact} surface_compact={surface_compact}")
 
 
 def read_ply_count(path: str) -> int:
@@ -216,56 +327,86 @@ def mahalanobis_max(cloud, arrays, n_check=200_000) -> float:
     return float(np.sqrt((local ** 2).sum(-1)).max())
 
 
-def phase_e2e(device, work):
-    import bench
+def check_cloud(result, out: str, label: str) -> int:
+    """Points written == cloud == quota sum, all finite; returns the count."""
     import numpy as np
+
+    cloud = result.cloud
+    n_file = read_ply_count(out)
+    quota_sum = int(cloud.counts.sum())
+    if not (n_file == cloud.total == quota_sum):
+        fail(f"{label}: points written {n_file}, cloud {cloud.total}, quota sum {quota_sum}")
+    if not np.isfinite(cloud.points).all():
+        fail(f"{label}: non-finite point positions")
+    if result.writer != "native_expand":
+        fail(f"{label}: the PLY was written by the {result.writer} writer, not native_expand")
+    return n_file
+
+
+def phase_e2e(device, work):
+    import torch
 
     from gs2pc_torch import cli
     from gs2pc_torch.ops import blend_kernel as B
     from gs2pc_torch.ops import rasterize as R
-    from gs2pc_torch.utils import log
+    from gs2pc_torch.utils import capture, log
 
     t0 = time.perf_counter()
-    arrays = bench.make_scene_arrays(N_E2E_GAUSSIANS)
-    transforms, intr = bench.make_poses(N_E2E_CAMERAS, E2E_WIDTH, E2E_HEIGHT)
-    ply, tj, mask_dir = bench.write_capture(work, arrays, transforms, intr, with_masks=True)
-    out = os.path.join(work, "cloud.ply")
+    arrays = capture.make_scene_arrays(N_E2E_GAUSSIANS)
+    transforms, intr = capture.make_poses(N_E2E_CAMERAS, E2E_WIDTH, E2E_HEIGHT)
+    ply, tj, mask_dir = capture.write_capture(work, arrays, transforms, intr, with_masks=True)
     print(f"e2e capture written in {time.perf_counter() - t0:.1f}s "
           f"({N_E2E_GAUSSIANS} Gaussians, {N_E2E_CAMERAS} cameras)", flush=True)
+
+    def argv(out):
+        return [
+            "--input_path", ply, "--transform_path", tj, "--mask_path", mask_dir,
+            "--output_path", out, "--num_points", str(N_POINTS),
+            "--surface_distance_std", "1e6", "--seed", "0", "--quiet",
+        ]
+
+    out = os.path.join(work, "cloud.ply")
 
     log.reset_phases()
     B.blend_tiles.launches = 0
     R.duplicate_with_keys.launches = 0
     t0 = time.perf_counter()
-    result = cli.main([
-        "--input_path", ply, "--transform_path", tj, "--mask_path", mask_dir,
-        "--output_path", out, "--num_points", str(N_POINTS),
-        "--surface_distance_std", "1e6", "--seed", "0", "--quiet",
-    ])
+    result = cli.main(argv(out))
     wall = time.perf_counter() - t0
     launches = {"blend_tiles": B.blend_tiles.launches,
                 "duplicate_with_keys": R.duplicate_with_keys.launches}
 
-    cloud = result.cloud
     want = {"blend_tiles": N_E2E_CAMERAS, "duplicate_with_keys": 2 * N_E2E_CAMERAS}
     if launches != want:
         fail(f"kernel launches {launches}, expected {want}")
-    n_file = read_ply_count(out)
-    quota_sum = int(cloud.counts.sum())
-    if not (n_file == cloud.total == quota_sum):
-        fail(f"points written {n_file}, cloud {cloud.total}, quota sum {quota_sum}")
+    n_file = check_cloud(result, out, "e2e")
     if abs(n_file - N_POINTS) > 0.01 * N_POINTS:
         fail(f"{n_file} points written for a budget of {N_POINTS}")
-    if not np.isfinite(cloud.points).all():
-        fail("non-finite point positions")
-    zmax = mahalanobis_max(cloud, arrays)
+    zmax = mahalanobis_max(result.cloud, arrays)
     if zmax > 2.0 + 1e-3:
         fail(f"a sampled point lies {zmax} deviations from its Gaussian (> 2)")
     phases = {k: round(v, 3) for k, v in log.PHASE_SECONDS.items()}
-    print(f"e2e: {n_file} points (quota sum {quota_sum}) in {wall:.2f}s, "
-          f"{n_file / wall:,.0f} points/s disk to disk; launches {launches}; "
-          f"counters [pairs, win_drop, cap_drop, cap_live] = {result.sweep_diag}; "
-          f"max sampled |z| {zmax:.4f}; phases {json.dumps(phases)}", flush=True)
+    print(f"e2e: {n_file} points (quota sum {int(result.cloud.counts.sum())}) in {wall:.2f}s, "
+          f"{n_file / wall:,.0f} points/s disk to disk; writer {result.writer}; "
+          f"launches {launches}; counters [pairs, win_drop, cap_drop, cap_live] = "
+          f"{result.sweep_diag}; max sampled |z| {zmax:.4f}; phases {json.dumps(phases)}",
+          flush=True)
+
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        out_n = os.path.join(work, "cloud_gauss.ply")
+        B.blend_tiles.launches = 0
+        t0 = time.perf_counter()
+        res_n = cli.main(argv(out_n) + ["--num_devices", str(n_cards), "--shard_axis", "gauss"])
+        wall_n = time.perf_counter() - t0
+        n_file = check_cloud(res_n, out_n, f"e2e on {n_cards} cards")
+        if B.blend_tiles.launches != 3 * n_cards * N_E2E_CAMERAS:
+            fail(f"K1 launched {B.blend_tiles.launches} times on the depth-slab path, "
+                 f"expected {3 * n_cards * N_E2E_CAMERAS}")
+        print(f"e2e --num_devices {n_cards} --shard_axis gauss: {n_file} points in "
+              f"{wall_n:.2f}s; counters {res_n.sweep_diag}", flush=True)
+    else:
+        print("e2e on more than one card: skipped, this machine has one card", flush=True)
     return arrays, launches
 
 
@@ -298,6 +439,8 @@ def phase_timing(device, arrays):
     t = B.blend_tiles_torch(*args, **kw)
     torch.cuda.synchronize()
     k1_err = compare_k1(k, t, label)
+    bounds = {"blend_tiles": k1_bound(args, kw, k),
+              "duplicate_with_keys": k2_bound(prep, n_pairs)}
     del k, t
 
     ms = {
@@ -308,15 +451,219 @@ def phase_timing(device, arrays):
         "blend_tiles_torch": cuda_ms(lambda: B.blend_tiles_torch(*args, **kw), 1),
     }
     print(f"timing, {label}: "
-          + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()), flush=True)
-    return ms, k1_err
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+          + "; bounds " + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in bounds.items()),
+          flush=True)
+    return ms, bounds, k1_err
+
+
+def phase_slab(device, arrays):
+    """K1's three depth-slab passes of slab 1 of 4 on camera 0 of the e2e
+    scene, with the inputs the depth-slab sweep gives them (pass 2's
+    starting T is slab 0's real transmittance, pass 3's depth map the real
+    combined one): held against the twin, then timed beside it."""
+    import torch
+
+    from gs2pc_torch.ops import blend_kernel as B
+    from gs2pc_torch.ops import rasterize as R
+    from gs2pc_torch.parallel.gauss_shard import render_sweep_gauss_sharded
+    from gs2pc_torch.sweep import render_arrays
+
+    g = scene_on_device(arrays, device)
+    cams = camera_batch(1, E2E_WIDTH, E2E_HEIGHT, device, with_masks=True)
+    cfg = R.TileConfig(width_pad=cams.width_pad, height_pad=cams.height_pad,
+                       compact=True, surface_compact=True)
+    calls = []
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return B.blend_tiles(*args, **kw)
+
+    with mock.patch.object(R, "blend_tiles", record):
+        render_sweep_gauss_sharded(render_arrays(g), cams, cfg, [device] * N_SLABS)
+    if len(calls) != 3 * N_SLABS:
+        fail(f"the depth-slab sweep of one camera made {len(calls)} K1 calls, "
+             f"expected {3 * N_SLABS}")
+    out = {}
+    for mode, (args, kw) in zip(K1_MODES, calls[1::N_SLABS]):
+        if B.mode_of(kw["init_trans"], kw["ed_override"], kw["early_stop"]) != mode:
+            fail(f"slab pass {mode} ran K1 in another mode")
+        label = f"slab 1 of {N_SLABS}, camera 0 of the e2e scene, {mode} ({args[1].numel()} pairs)"
+        k = B.blend_tiles(*args, **kw)
+        t = B.blend_tiles_torch(*args, **kw)
+        torch.cuda.synchronize()
+        err = compare_k1(k, t, label)
+        bound = k1_bound(args, kw, k)
+        del k, t
+        ms = cuda_ms(lambda: B.blend_tiles(*args, **kw), 5)
+        plain = cuda_ms(lambda: B.blend_tiles_torch(*args, **kw), 1)
+        print(f"timing, {label}: blend_tiles {ms:.3f} ms, blend_tiles_torch {plain:.3f} ms, "
+              f"bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
+        out[mode] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound=bound)
+    return out
+
+
+def shard_diffs(acc, ref) -> dict:
+    """Largest differences of a sharded sweep's accumulators from a
+    single-device reference."""
+    from gs2pc_torch.ops.blend import FLOAT_MAX
+
+    fa, fr = acc.min_surface_distance < FLOAT_MAX, ref.min_surface_distance < FLOAT_MAX
+    d_sd = (acc.min_surface_distance - ref.min_surface_distance)[fa & fr].abs()
+    d_max = (acc.max_contribution - ref.max_contribution).abs()
+    return dict(
+        max_contribution=float(d_max.max()),
+        over_bound=int((d_max > TOL_SHARD_CONTRIB).sum()),
+        total_contribution=float((acc.total_contribution - ref.total_contribution).abs().max()),
+        surf_dist=float(d_sd.max()) if d_sd.numel() else 0.0,
+        surf_finite_differs=int((fa != fr).sum()),
+        colour_share=float(((acc.colours - ref.colours).abs().amax(dim=1)
+                            < TOL_SHARD_COLOUR).float().mean()),
+    )
+
+
+def compare_sharded(acc, ref, ref_sd, label: str) -> None:
+    """Hold a depth-slab sweep to the single-device sweep in the same radius
+    mode: contributions, colours and counters to ``ref`` (surface pass off,
+    so the adaptive radius of passes 1-2), surface distances to ``ref_sd``
+    (the full rect, measured against ``ref``'s expected depth, as pass 3)."""
+    import torch
+
+    d = shard_diffs(acc, ref)
+    d_sd = shard_diffs(acc, ref_sd)
+    print(f"{label} vs one device: max_contribution {d['max_contribution']:.3g}, total "
+          f"{d['total_contribution']:.3g}, colour within {TOL_SHARD_COLOUR:g} on "
+          f"{d['colour_share']:.6f}, surface distance {d_sd['surf_dist']:.3g} (finite on "
+          f"different Gaussians: {d_sd['surf_finite_differs']}); counters "
+          f"{acc.n_dropped.tolist()} vs {ref.n_dropped.tolist()}", flush=True)
+    if float(acc.n_dropped[1]) != 0.0:
+        fail(f"{label}: {float(acc.n_dropped[1])} Gaussians overflowed their slab buffers")
+    if not torch.equal(acc.n_dropped, ref.n_dropped) or float(acc.n_dropped[2]) != 0.0:
+        fail(f"{label}: counters {acc.n_dropped.tolist()} vs {ref.n_dropped.tolist()}")
+    worst = max(d["max_contribution"], d["total_contribution"])
+    if worst > TOL_SHARD_CONTRIB:
+        fail(f"{label}: contributions off by {worst} > {TOL_SHARD_CONTRIB}")
+    if d_sd["surf_finite_differs"] or d_sd["surf_dist"] > TOL_SHARD_SURF:
+        fail(f"{label}: surface distances off by {d_sd['surf_dist']} "
+             f"({d_sd['surf_finite_differs']} finite on one side only)")
+    if d["colour_share"] <= SHARD_COLOUR_SHARE:
+        fail(f"{label}: colours within {TOL_SHARD_COLOUR} on only {d['colour_share']:.4f}")
+
+
+def phase_sharded(device, arrays):
+    """The three sharded sweeps at full width against single-device sweeps,
+    the depth-slab and 2-D ones through the pipeline's --shard_axis
+    dispatch; returns the depth-slab sweep's K1 launches by mode.
+
+    The depth-slab passes 1-2 blend with the adaptive radius (no surface
+    pass) and pass 3 measures over the full rect, as in the JAX package.
+    The adaptive radius's rect can miss a tile a Gaussian still reaches
+    with alpha >= 1/255 (the reference's getRect rounding), so the slab
+    sweep is held to the single-device sweep in the same radius modes, and
+    its distance from the plain surface-on sweep is printed beside it.
+    surface_compact is off: the slab passes enter other chunks than one
+    device would, so the surface min would cover other pairs."""
+    import torch
+
+    from gs2pc_torch import pipeline
+    from gs2pc_torch.ops import blend_kernel as B
+    from gs2pc_torch.ops import rasterize as R
+    from gs2pc_torch.ops.projection import preprocess
+    from gs2pc_torch.sweep import (
+        init_accumulators,
+        render_arrays,
+        render_sweep,
+        render_sweep_sharded,
+    )
+    from gs2pc_torch.utils.config import GaussPointCloudSettings, RenderConfig
+
+    g = scene_on_device(arrays, device)
+    cams = camera_batch(N_SHARD_CAMERAS, E2E_WIDTH, E2E_HEIGHT, device, with_masks=True)
+    probe = R.TileConfig(width_pad=cams.width_pad, height_pad=cams.height_pad)
+    longest = 0
+    for i in range(cams.num_cameras):
+        prep = preprocess(g.xyz, g.covariance_factors(), g.opacities, g.keep_mask, cams.at(i),
+                          adaptive_radius=False)
+        keys, _ = R.sort_pairs(*R.duplicate_with_keys(prep, probe, circle_cull=False))
+        longest = max(longest, int(R.tile_ranges(keys, probe.num_tiles)[1].max()))
+        del keys, prep
+    render = RenderConfig(max_pairs_per_tile=longest + 1, compact_pairs=True,
+                          surface_compact=False)
+    cfg = pipeline.tile_config(GaussPointCloudSettings(render=render),
+                               cams.width_pad, cams.height_pad)
+    scene = render_arrays(g)
+
+    def dispatched(axis):
+        """The sweep as the CLI's --shard_axis reaches it (surface pass on)."""
+        settings = GaussPointCloudSettings(surface_distance_std=1e6, shard_axis=axis,
+                                           render=render)
+        return pipeline.run_render_sweep(g, cams, settings, [device] * N_SLABS)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc = fn()
+        torch.cuda.synchronize()
+        return acc, time.perf_counter() - t0
+
+    ref, wall_1 = timed(lambda: render_sweep(scene, cams, cfg))
+    ref_adr = render_sweep(scene, cams, cfg, calc_surface_distance=False)
+    sd = init_accumulators(g.num_gaussians, device=device).min_surface_distance
+    for i in range(cams.num_cameras):
+        cam = cams.at(i)
+        ed = R.render_tile_camera(*scene, cam, cfg, calc_surface_distance=False).depth
+        out = R.render_tile_camera(*scene, cam, cfg, surface_ed_override=ed.reshape(-1))
+        sd = torch.minimum(sd, out.surf_dist)
+    ref_sd = ref_adr._replace(min_surface_distance=sd)
+
+    B.blend_tiles.launches = 0
+    B.blend_tiles.launches_by_mode.clear()
+    R.duplicate_with_keys.launches = 0
+    gauss, wall_g = timed(lambda: dispatched("gauss"))
+    launches = dict(B.blend_tiles.launches_by_mode)
+    k2_launches = R.duplicate_with_keys.launches
+    want_k1 = 3 * N_SLABS * N_SHARD_CAMERAS
+    if B.blend_tiles.launches != want_k1 or any(
+            launches.get(m) != N_SLABS * N_SHARD_CAMERAS for m in K1_MODES):
+        fail(f"K1 launches on the depth-slab sweep: {B.blend_tiles.launches} "
+             f"({launches}), expected {want_k1}: 3 per slab and camera")
+    cams2, wall_c = timed(lambda: render_sweep_sharded(scene, cams, cfg, [device] * 2))
+    B.blend_tiles.launches = 0
+    grid, wall_2 = timed(lambda: dispatched("both"))
+    # 2 x 2 grid: each camera's row splits it into 2 slabs, 3 passes each.
+    if B.blend_tiles.launches != 3 * 2 * N_SHARD_CAMERAS:
+        fail(f"K1 launches on the 2-D sweep: {B.blend_tiles.launches}, expected "
+             f"{3 * 2 * N_SHARD_CAMERAS}")
+    print(f"sharded sweeps, {N_SHARD_CAMERAS} cameras at {E2E_WIDTH}x{E2E_HEIGHT}, "
+          f"{N_E2E_GAUSSIANS} Gaussians, masks, surface pass, run cap {cfg.run_cap} (longest "
+          f"tile run {longest}): wall single {wall_1:.3f}s, gauss x{N_SLABS} {wall_g:.3f}s, "
+          f"cams x2 {wall_c:.3f}s, 2-D 2x2 {wall_2:.3f}s; launches on the gauss sweep: K1 "
+          f"{want_k1} ({launches}), K2 {k2_launches}", flush=True)
+    plain = shard_diffs(gauss, ref)
+    print(f"gauss sweep vs the plain surface-on single-device sweep (other radius in passes "
+          f"1-2): max_contribution {plain['max_contribution']:.3g} (over "
+          f"{TOL_SHARD_CONTRIB:g} on {plain['over_bound']} Gaussians), colour within "
+          f"{TOL_SHARD_COLOUR:g} on {plain['colour_share']:.6f}", flush=True)
+    compare_sharded(gauss, ref_adr, ref_sd,
+                    f"--shard_axis gauss sweep (run_render_sweep) on [cuda:0] * {N_SLABS}")
+    compare_sharded(grid, ref_adr, ref_sd,
+                    f"--shard_axis both sweep (run_render_sweep) on [cuda:0] * {N_SLABS}")
+    d = shard_diffs(cams2, ref)
+    print(f"camera sweep on [cuda:0] * 2 vs one device: total {d['total_contribution']:.3g}; "
+          f"max, colour, surface distance and counters equal: "
+          f"{all(torch.equal(getattr(cams2, n), getattr(ref, n)) for n in EXACT)}", flush=True)
+    for name in EXACT:
+        if not torch.equal(getattr(cams2, name), getattr(ref, name)):
+            fail(f"camera sweep: {name} differs from the single-device sweep")
+    if d["total_contribution"] > TOL_SHARD_CONTRIB:
+        fail(f"camera sweep: total contribution off by {d['total_contribution']}")
+    return launches
 
 
 def main() -> int:
     import torch
 
     sys.path.insert(0, REPO)
-    import bench  # noqa: F401  (the capture helpers; numpy only)
     from gs2pc_torch.ops import cuda_build
 
     if not torch.cuda.is_available():
@@ -328,7 +675,8 @@ def main() -> int:
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     print(smi, flush=True)
-    print(f"device: {kind} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    print(f"device: {kind} | torch {torch.__version__} cuda {torch.version.cuda} | "
+          f"{torch.cuda.device_count()} card(s)", flush=True)
 
     t0 = time.perf_counter()
     cuda_build.load_library()
@@ -336,6 +684,11 @@ def main() -> int:
              if "registers" in ln or "Compiling entry" in ln]
     print(f"build: {time.perf_counter() - t0:.1f}s -> {cuda_build.BUILD_INFO['path']}; "
           + " | ".join(ptxas), flush=True)
+    t0 = time.perf_counter()
+    if cuda_build.load_plyio() is None:
+        fail(f"the PLY writer did not build: {cuda_build.PLYIO_INFO.get('error')}")
+    print(f"build: PLY writer {time.perf_counter() - t0:.1f}s -> "
+          f"{cuda_build.PLYIO_INFO['path']}", flush=True)
 
     phase_k2(device)
     phase_k1(device)
@@ -346,16 +699,24 @@ def main() -> int:
         arrays, launches = phase_e2e(device, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    ms, k1_err = phase_timing(device, arrays)
+    ms, bounds, k1_err = phase_timing(device, arrays)
+    slab = phase_slab(device, arrays)
+    launches.update(phase_sharded(device, arrays))
 
+    def entry(name, source, replaces, n, err, t, plain, bound):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": n, "max_abs_err": err, "ms": t, "plain_ms": plain,
+                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+
+    k1_src, k1_tpu = "gs2pc_torch/csrc/blend.cu", "gs2pc/ops/pallas_blend.py:808"
     record = {"kernels": [
-        {"name": "blend_tiles", "route": "cuda", "source": "gs2pc_torch/csrc/blend.cu",
-         "replaces": "gs2pc/ops/pallas_blend.py:808", "launches": launches["blend_tiles"],
-         "max_abs_err": k1_err, "ms": ms["blend_tiles"], "plain_ms": ms["blend_tiles_torch"]},
-        {"name": "duplicate_with_keys", "route": "cuda", "source": "gs2pc_torch/csrc/pairs.cu",
-         "replaces": "gs2pc/ops/rasterize.py:250",
-         "launches": launches["duplicate_with_keys"], "max_abs_err": 0.0,
-         "ms": ms["duplicate_with_keys"], "plain_ms": ms["duplicate_with_keys_torch"]},
+        entry("blend_tiles", k1_src, k1_tpu, launches["blend_tiles"], k1_err,
+              ms["blend_tiles"], ms["blend_tiles_torch"], bounds["blend_tiles"]),
+        *(entry(f"blend_tiles[{m}]", k1_src, k1_tpu, launches[m], slab[m]["max_abs_err"],
+                slab[m]["ms"], slab[m]["plain_ms"], slab[m]["bound"]) for m in K1_MODES),
+        entry("duplicate_with_keys", "gs2pc_torch/csrc/pairs.cu", "gs2pc/ops/rasterize.py:250",
+              launches["duplicate_with_keys"], 0.0, ms["duplicate_with_keys"],
+              ms["duplicate_with_keys_torch"], bounds["duplicate_with_keys"]),
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

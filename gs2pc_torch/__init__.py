@@ -9,6 +9,6 @@ own); nothing picks a device by itself.  The hand-written kernels live in
 plain PyTorch twin in the same module, which runs for CPU tensors only.
 """
 
-from gs2pc.version import __version__
+from gs2pc_torch.version import __version__
 
 __all__ = ["__version__"]

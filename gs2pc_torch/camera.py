@@ -94,6 +94,19 @@ class Camera:
     height: int
     mask: Optional[torch.Tensor]
 
+    def to(self, device) -> "Camera":
+        """This camera's tensors on ``device`` (no copy where they already are)."""
+        return dataclasses.replace(self, **{
+            f: getattr(self, f).to(device)
+            for f in _TENSOR_FIELDS if getattr(self, f) is not None
+        })
+
+
+# The tensor fields of Camera and CameraBatch.
+_TENSOR_FIELDS = (
+    "viewmatrix", "projmatrix", "campos", "tanfovx", "tanfovy", "focal_x", "focal_y", "mask",
+)
+
 
 @dataclasses.dataclass(frozen=True)
 class CameraBatch:
@@ -128,6 +141,18 @@ class CameraBatch:
             width=int(self.widths[i]),
             height=int(self.heights[i]),
             mask=None if self.mask is None else self.mask[i],
+        )
+
+    def sub(self, lo: int, hi: int, device) -> "CameraBatch":
+        """Cameras [lo, hi) on ``device``, padded dims unchanged."""
+        return dataclasses.replace(
+            self,
+            widths=self.widths[lo:hi],
+            heights=self.heights[lo:hi],
+            **{
+                f: getattr(self, f)[lo:hi].to(device)
+                for f in _TENSOR_FIELDS if getattr(self, f) is not None
+            },
         )
 
     @staticmethod

@@ -1,5 +1,8 @@
 """CLI entry point: the command line of ``python -m gs2pc`` (parsed by the
-shared gs2pc.utils.config), run on one CUDA device."""
+port's copy of its parser, gs2pc_torch.utils.config), run on CUDA devices:
+``cuda:0`` for everything, and ``cuda:0 .. cuda:N-1`` for the camera sweep
+with ``--num_devices N`` (0, the default, means every card) on the axis
+``--shard_axis cams|gauss|both`` names."""
 
 from __future__ import annotations
 
@@ -8,7 +11,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from gs2pc.utils.config import build_parser, parse_args, settings_from_args
+from gs2pc_torch.utils.config import build_parser, parse_args, settings_from_args
 from gs2pc_torch.io.ply import save_point_cloud_ply
 from gs2pc_torch.pipeline import (
     Conversion,
@@ -34,7 +37,6 @@ def check_flags(args) -> None:
             log.warn(f"--{name} tunes the TPU build only; it does nothing in gs2pc_torch")
     refused = (
         (args.clean_pointcloud, "--clean_pointcloud", 4),
-        (args.num_devices > 1, "--num_devices above 1", 6),
         (args.profile_dir is not None, "--profile_dir", 8),
     )
     for given, flag, item in refused:
@@ -49,17 +51,17 @@ def main(argv: Optional[Sequence[str]] = None) -> Conversion:
     check_flags(args)
     check_supported(settings)
     if not torch.cuda.is_available():
-        sys.exit("gs2pc_torch: no CUDA device is available; the port runs on one GPU "
+        sys.exit("gs2pc_torch: no CUDA device is available; the port runs on NVIDIA GPUs "
                  "(use python -m gs2pc on other machines)")
     result = convert_3dgs_to_pc(
         args.input_path, args.transform_path, args.mask_path, settings,
-        device=torch.device("cuda", 0),
+        device=torch.device("cuda", 0), num_devices=args.num_devices,
     )
     log.info("Saving Final Point Cloud")
     with log.phase("ply_write"):
         writer = save_point_cloud_ply(result.cloud, args.output_path, chunk_size=10**6)
     log.info(f"Wrote {result.cloud.total:,} points to {args.output_path} ({writer} writer)")
-    return result
+    return result._replace(writer=writer)
 
 
 if __name__ == "__main__":

@@ -3,7 +3,27 @@
 // Replaces: gs2pc/ops/pallas_blend.py::_blend_kernel (:261-673, launched by
 // pallas_blend's pl.pallas_call at :808) together with the per-Gaussian
 // windowed scatter reductions that follow it, gs2pc/ops/rasterize.py::
-// _pair_reduce (:1014) and _sd_reduce (:986).
+// _pair_reduce (:1014) and _sd_reduce (:986), in all four of its modes.
+//
+// Modes (the last three serve the depth-slab renderer,
+// gs2pc_torch/parallel/gauss_shard.py; each is one pass per slab):
+//   main         T starts at 1, the T*(1-alpha) < 1e-4 stop fires, every
+//                tile leaves at its all-done chunk.
+//   early_stop=0 (pass 1) the stop never fires: every ok pair blends and T
+//                is the exact product over the run, so the all-done exit
+//                never fires on a tile with a valid pixel and the tile walks
+//                its whole capped run -- the costly mode.
+//   init_trans   (pass 2, and pass 3) T starts at the pixel's value in a
+//                (Hp*Wp,) map (the upstream slabs' product); a pixel whose
+//                start is already below 1e-4 stops on its first ok pair and
+//                blends nothing, which reproduces the single-device stop.
+//                Costs one 4-byte load per pixel.
+//   ed_override  (pass 3) the surface pass measures |depth - map[pixel]|
+//                (the combined expected depth of all slabs) instead of the
+//                tile's own; chunk counts and surface_compact are unchanged.
+//                Costs one 4-byte load per pixel.
+// The background bg is an argument: the slab passes render with 0 and the
+// caller adds the background once from the combined T.
 //
 // Shape, as in the reference's renderCUDA: one CTA per 16x16 tile, one
 // thread per pixel.  The tile's depth-sorted pair run is walked in chunks
@@ -16,7 +36,8 @@
 // the two on one pixel, which would change it by up to alpha * T.  The all-done
 // test runs once per chunk, so the number of chunks entered (r_fin) is the
 // JAX kernel's and the surface pass of surface_compact mode covers the same
-// pairs.
+// pairs.  r_fin is also written per tile (chunks), so a caller can count
+// the pairs the blend streamed.
 //
 // Per-pair reductions happen in the epilogue of each chunk instead of a
 // separate scatter pass: per pair, a warp-shuffle max and a shared-memory
@@ -30,8 +51,9 @@
 // valid pixels of |depth - expected depth|, folded with an integer
 // atomicMin on the non-negative float bits.
 //
-// Bound: per (pair, pixel) ~30 flops and one expf, plus 64-bit shuffles per
-// pair per warp; on capture-like scenes most tiles stop after a few chunks.
+// Bound: per streamed (pair, pixel) ~30 flops and one expf, plus 64-bit
+// shuffles per pair per warp; on capture-like scenes most tiles stop after
+// a few chunks, except in the early_stop=0 mode, which streams every pair.
 // This first version is latency-bound by the sequential per-pair loop and
 // the per-pair reductions; batching the key reduction and double-buffering
 // the staging are later work.
@@ -47,6 +69,9 @@ struct BlendParams {
     const int* starts;       // (num_tiles,) run start in the sorted pairs
     const int* counts;       // (num_tiles,) capped run length (0 = skip tile)
     const uint8_t* mask;     // (Hp * Wp,) 0 = masked pixel, or nullptr
+    const float* init_trans; // (Hp * Wp,) starting T per pixel, or nullptr (1)
+    const float* ed_override;// (Hp * Wp,) surface-pass depth target, or nullptr
+    int early_stop;          // 0: the T < 1e-4 stop never fires
     int table_lanes;         // 8 (compact rgb24) or 16
     int width, height;       // true image size
     int grid_w, width_pad;   // tiles per row, padded row length in pixels
@@ -58,6 +83,7 @@ struct BlendParams {
     float* invdepth;
     float* trans;
     float* live;
+    int* chunks;             // (num_tiles,) chunks the blend entered (r_fin)
     unsigned long long* contrib_key;  // (P,) zero-initialised
     int* surf_bits;          // (P,) float bits, FLT_MAX-initialised
 };
@@ -105,7 +131,8 @@ __global__ void __launch_bounds__(TILE_PIXELS) blend_tiles_kernel(const BlendPar
         gx < p.width && gy < p.height && (p.mask == nullptr || p.mask[pix] != 0);
     const float pxf = (float)gx, pyf = (float)gy;
 
-    float T = 1.f, cr = 0.f, cg = 0.f, cb = 0.f, ed = 0.f, einv = 0.f;
+    float T = p.init_trans != nullptr ? p.init_trans[pix] : 1.f;
+    float cr = 0.f, cg = 0.f, cb = 0.f, ed = 0.f, einv = 0.f;
     bool done = !valid;
 
     const int start = p.starts[tile];
@@ -159,7 +186,7 @@ __global__ void __launch_bounds__(TILE_PIXELS) blend_tiles_kernel(const BlendPar
                     const float alpha = fminf(0.99f, __fmul_rn(s_o[j], expf(power)));
                     if (alpha >= alpha_min) {
                         const float test_T = __fmul_rn(T, 1.f - alpha);
-                        if (test_T < 1e-4f) {
+                        if (p.early_stop && test_T < 1e-4f) {
                             done = true;
                         } else {
                             w = __fmul_rn(alpha, T);
@@ -202,11 +229,13 @@ __global__ void __launch_bounds__(TILE_PIXELS) blend_tiles_kernel(const BlendPar
     p.invdepth[pix] = valid ? einv : 0.f;
     p.trans[pix] = valid ? T : 1.f;
     p.live[pix] = (valid && !done) ? T : 0.f;
+    if (lid == 0) p.chunks[tile] = r_fin;
 
     if (!p.with_surface) return;
     // Surface pass: min over valid pixels of |pair depth - expected depth|,
     // over the chunks the blend streamed (surface_compact) or the whole run.
     const int n_surf = p.surface_compact ? r_fin : n_chunks;
+    const float ed_target = p.ed_override != nullptr ? p.ed_override[pix] : ed;
     for (int r = 0; r < n_surf; ++r) {
         const int base = start + r * Rs;
         const int n = min(Rs, count - r * Rs);
@@ -217,7 +246,7 @@ __global__ void __launch_bounds__(TILE_PIXELS) blend_tiles_kernel(const BlendPar
         }
         __syncthreads();
         for (int j = 0; j < n; ++j) {
-            float dist = valid ? fabsf(s_d[j] - ed) : FLT_MAX;
+            float dist = valid ? fabsf(s_d[j] - ed_target) : FLT_MAX;
             dist = warp_min_f32(dist);
             if (lane == 0) s_sd[warp * Rs + j] = dist;
         }
@@ -237,18 +266,22 @@ static size_t blend_smem_bytes(int run_chunk) {
 }
 
 GS2PC_API int gs2pc_blend_tiles(const void* table, const void* sorted_gid, const void* starts,
-                                const void* counts, const void* mask, int table_lanes,
+                                const void* counts, const void* mask, const void* init_trans,
+                                const void* ed_override, int early_stop, int table_lanes,
                                 int num_tiles, int width, int height, int grid_w,
                                 int width_pad, int run_chunk, float bg, int with_surface,
                                 int surface_compact, void* image, void* depth,
-                                void* invdepth, void* trans, void* live, void* contrib_key,
-                                void* surf_bits, void* stream) {
+                                void* invdepth, void* trans, void* live, void* chunks,
+                                void* contrib_key, void* surf_bits, void* stream) {
     BlendParams prm;
     prm.table = (const float*)table;
     prm.sorted_gid = (const int*)sorted_gid;
     prm.starts = (const int*)starts;
     prm.counts = (const int*)counts;
     prm.mask = (const uint8_t*)mask;
+    prm.init_trans = (const float*)init_trans;
+    prm.ed_override = (const float*)ed_override;
+    prm.early_stop = early_stop;
     prm.table_lanes = table_lanes;
     prm.width = width;
     prm.height = height;
@@ -263,6 +296,7 @@ GS2PC_API int gs2pc_blend_tiles(const void* table, const void* sorted_gid, const
     prm.invdepth = (float*)invdepth;
     prm.trans = (float*)trans;
     prm.live = (float*)live;
+    prm.chunks = (int*)chunks;
     prm.contrib_key = (unsigned long long*)contrib_key;
     prm.surf_bits = (int*)surf_bits;
     const size_t smem = blend_smem_bytes(run_chunk);

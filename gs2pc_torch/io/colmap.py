@@ -164,7 +164,7 @@ def load_colmap_txt_data(input_path: str, skip_rate: int = 0) -> Tuple[dict, dic
 
 def load_transform_data(input_path: str, skip_rate: int = 0) -> Tuple[dict, dict]:
     """Directory -> COLMAP txt/bin (also <dir>/sparse/0); file -> .json."""
-    from gs2pc.io.transforms_json import load_transform_json_data
+    from gs2pc_torch.io.transforms_json import load_transform_json_data
 
     if os.path.isdir(input_path):
         if os.path.exists(os.path.join(input_path, "images.txt")):

@@ -1,9 +1,8 @@
 """Scene loading to one device (counterpart of gs2pc.io.gaussians_io).
 
-The .ply header/body codec (``gs2pc.io.ply.read_ply``) and the .splat
-loader are shared with the JAX package: both are numpy only.  The column
-extraction is repeated here because ``gs2pc.io.ply.load_ply_gaussians``
-reaches ``gs2pc.ops.sh`` (and so JAX) for SH-format scenes.
+The .ply codec and the .splat loader are the port's copies of the JAX
+package's (gs2pc_torch.io.ply.read_ply, gs2pc_torch.io.splat); the column
+extraction below repeats gs2pc.io.ply.load_ply_gaussians' rules.
 """
 
 from __future__ import annotations
@@ -12,8 +11,8 @@ import os
 
 import numpy as np
 
-from gs2pc.io.ply import read_ply
-from gs2pc.io.splat import load_splat_gaussians
+from gs2pc_torch.io.ply import read_ply
+from gs2pc_torch.io.splat import load_splat_gaussians
 from gs2pc_torch.models.gaussians import Gaussians
 from gs2pc_torch.utils import log
 

@@ -1,20 +1,162 @@
-"""Point-cloud PLY output (counterpart of gs2pc.io.ply.save_point_cloud_ply).
+"""PLY input and point-cloud output (the port's copy of gs2pc.io.ply's
+reader, and the counterpart of its save_point_cloud_ply).
 
-The cloud is host-resident: positions (N, 3) and per-Gaussian uint8
-colours / normals that expand over the per-Gaussian point counts (points
-are slot-major, so colours and normals are row repeats).  The bytes match
-the JAX package's writer: binary little-endian, float32 x y z [nx ny nz],
-uchar red green blue.  The native C++ expand-writer of gs2pc.native packs
-and writes when it builds; otherwise numpy does.
+Reading: ``read_ply`` is the JAX package's dependency-free numpy codec,
+copied unchanged (binary little/big endian and ascii, scalar properties;
+list properties only through the row-wise path).
+
+Writing: the cloud is host-resident, positions (N, 3) and per-Gaussian
+uint8 colours / normals that expand over the per-Gaussian point counts
+(points are slot-major, so colours and normals are row repeats).  The bytes
+match the JAX package's writer: binary little-endian, float32 x y z
+[nx ny nz], uchar red green blue.  The native C++ expand-writer
+(``csrc/plyio.cpp``, built with g++ at first use) packs and writes; where
+no g++ is found or the build fails, numpy does.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import io
 from typing import Optional
 
 import numpy as np
+
+_PLY_TYPES = {
+    "char": "i1",
+    "int8": "i1",
+    "uchar": "u1",
+    "uint8": "u1",
+    "short": "i2",
+    "int16": "i2",
+    "ushort": "u2",
+    "uint16": "u2",
+    "int": "i4",
+    "int32": "i4",
+    "uint": "u4",
+    "uint32": "u4",
+    "float": "f4",
+    "float32": "f4",
+    "double": "f8",
+    "float64": "f8",
+}
+
+
+class PlyElement:
+    def __init__(self, name: str, count: int):
+        self.name = name
+        self.count = count
+        self.properties: list[tuple[str, str]] = []  # (name, numpy dtype str)
+        self.data: Optional[np.ndarray] = None
+
+    def __getitem__(self, prop: str) -> np.ndarray:
+        return self.data[prop]
+
+    @property
+    def property_names(self) -> list[str]:
+        return [p[0] for p in self.properties]
+
+
+def read_ply(path: str) -> dict[str, PlyElement]:
+    """Parse a PLY file; returns elements keyed by name.
+
+    Supports binary_little_endian, binary_big_endian and ascii formats with
+    scalar properties (list properties are only needed for faces; vertex
+    clouds — the only thing the pipeline reads — never use them).
+    """
+    with open(path, "rb") as fh:
+        magic = fh.readline().strip()
+        if magic != b"ply":
+            raise AttributeError(f"{path} is not a PLY file")
+
+        fmt = None
+        elements: list[PlyElement] = []
+        while True:
+            line = fh.readline()
+            if not line:
+                raise AttributeError("Unexpected EOF in PLY header")
+            tokens = line.decode("ascii", "replace").strip().split()
+            if not tokens or tokens[0] == "comment":
+                continue
+            if tokens[0] == "format":
+                fmt = tokens[1]
+            elif tokens[0] == "element":
+                elements.append(PlyElement(tokens[1], int(tokens[2])))
+            elif tokens[0] == "property":
+                if tokens[1] == "list":
+                    elements[-1].properties.append(
+                        (tokens[4], f"LIST:{_PLY_TYPES[tokens[2]]}:{_PLY_TYPES[tokens[3]]}")
+                    )
+                else:
+                    elements[-1].properties.append((tokens[2], _PLY_TYPES[tokens[1]]))
+            elif tokens[0] == "end_header":
+                break
+
+        if fmt is None:
+            raise AttributeError("PLY header missing format line")
+
+        endian = "<" if fmt != "binary_big_endian" else ">"
+        for elem in elements:
+            has_list = any(t.startswith("LIST:") for _, t in elem.properties)
+            if fmt == "ascii":
+                _read_ascii_element(fh, elem)
+            elif has_list:
+                _read_binary_list_element(fh, elem, endian)
+            else:
+                dtype = np.dtype([(n, endian + t) for n, t in elem.properties])
+                buf = fh.read(dtype.itemsize * elem.count)
+                elem.data = np.frombuffer(buf, dtype=dtype, count=elem.count)
+    return {e.name: e for e in elements}
+
+
+def _read_ascii_element(fh, elem: PlyElement) -> None:
+    has_list = any(t.startswith("LIST:") for _, t in elem.properties)
+    if has_list:
+        # parse row by row, keeping only scalar leading properties
+        rows = []
+        for _ in range(elem.count):
+            rows.append(fh.readline().decode("ascii").split())
+        scalars = [(n, t) for n, t in elem.properties if not t.startswith("LIST:")]
+        data = np.zeros(elem.count, dtype=[(n, t) for n, t in scalars])
+        for i, row in enumerate(rows):
+            for j, (n, _) in enumerate(scalars):
+                data[n][i] = float(row[j])
+        elem.data = data
+        return
+    text = b"".join(fh.readline() for _ in range(elem.count))
+    flat = np.loadtxt(io.BytesIO(text), ndmin=2)
+    data = np.zeros(elem.count, dtype=[(n, t) for n, t in elem.properties])
+    for j, (n, _) in enumerate(elem.properties):
+        data[n] = flat[:, j]
+    elem.data = data
+
+
+def _read_binary_list_element(fh, elem: PlyElement, endian: str) -> None:
+    # Generic row-wise fallback (faces etc.); vertex clouds never hit this.
+    names, vals = [], []
+    for n, t in elem.properties:
+        if not t.startswith("LIST:"):
+            names.append((n, t))
+    rows = {n: [] for n, _ in names}
+    lists: dict[str, list] = {
+        n: [] for n, t in elem.properties if t.startswith("LIST:")
+    }
+    for _ in range(elem.count):
+        for n, t in elem.properties:
+            if t.startswith("LIST:"):
+                _, cnt_t, val_t = t.split(":")
+                cnt = int(np.frombuffer(fh.read(np.dtype(cnt_t).itemsize), endian + cnt_t)[0])
+                lists[n].append(
+                    np.frombuffer(fh.read(cnt * np.dtype(val_t).itemsize), endian + val_t)
+                )
+            else:
+                rows[n].append(np.frombuffer(fh.read(np.dtype(t).itemsize), endian + t)[0])
+    data = np.zeros(elem.count, dtype=[(n, t) for n, t in names])
+    for n, _ in names:
+        data[n] = rows[n]
+    elem.data = data
+    elem.lists = lists  # type: ignore[attr-defined]
 
 
 @dataclasses.dataclass
@@ -50,9 +192,9 @@ def ply_header(total: int, with_normals: bool) -> bytes:
 
 
 def _native_expand(cloud: PointCloud, filename: str, chunk_size: int) -> bool:
-    from gs2pc.native import load as load_native
+    from gs2pc_torch.ops.cuda_build import load_plyio
 
-    lib = load_native()
+    lib = load_plyio()
     if lib is None:
         return False
     pts = np.ascontiguousarray(cloud.points, np.float32)

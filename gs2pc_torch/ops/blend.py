@@ -15,7 +15,7 @@ from typing import NamedTuple, Optional
 import torch
 
 TILE = 16  # tile edge in pixels; one CUDA block of TILE * TILE threads per tile
-BACKGROUND = 1.0  # white, as the JAX sweep renders
+BACKGROUND = 1.0  # white, as the JAX sweep renders by default
 ALPHA_MAX = 0.99
 ALPHA_MIN = 1.0 / 255.0
 T_EPS = 1e-4
@@ -32,6 +32,13 @@ class RenderOutput(NamedTuple):
     contrib: torch.Tensor  # (P,) per-image max contribution alpha*T
     best_colour: torch.Tensor  # (P, 3) rendered colour at the argmax pixel
     surf_dist: torch.Tensor  # (P,) min |depth_g - expected depth|, FLOAT_MAX if none
-    # (4,) f32 counters [pairs blended, window-truncated (always 0 here),
-    # run-cap-dropped pairs, run-cap drops on tiles with live pixels].
+    # Populated on request, for the depth-slab renderer: the final per-pixel
+    # transmittance (its cross-slab prefix) and each Gaussian's best pixel
+    # (to re-gather its colour from the combined image).
+    trans: Optional[torch.Tensor] = None  # (Hp, Wp)
+    best_pix: Optional[torch.Tensor] = None  # (P,) int64 padded row-major pixel id
+    # (4,) f64 counters [pairs blended, window-truncated (always 0 on one
+    # camera; slab overflow on the depth-slab path), run-cap-dropped pairs,
+    # run-cap drops on tiles with live pixels].  Float64 keeps the sums of
+    # pair counts exact past 2^24.
     n_dropped: Optional[torch.Tensor] = None

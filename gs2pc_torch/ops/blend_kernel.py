@@ -9,13 +9,18 @@ fallback between the two.
 Inputs (one camera): the per-Gaussian blend table (rasterize.
 pack_blend_table), the depth-sorted pair gids, per-tile run starts and
 capped counts (0 for skipped tiles), and the row-major uint8 pixel mask or
-None.  Outputs (``BlendResult``): row-major image / depth / invdepth /
-final T / live T, and per Gaussian the max contribution, the lowest padded
-pixel id reaching it, and the min surface distance.
+None.  The depth-slab renderer's modes (gs2pc_torch.parallel.gauss_shard)
+add a row-major (Hp * Wp,) starting-T map ``init_trans``, a surface-pass
+depth map ``ed_override``, ``early_stop=False`` (the T < 1e-4 stop never
+fires) and the background ``bg``.  Outputs (``BlendResult``): row-major
+image / depth / invdepth / final T / live T, per tile the chunks the blend
+entered, and per Gaussian the max contribution, the lowest padded pixel id
+reaching it, and the min surface distance.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple, Optional
 
 import torch
@@ -32,12 +37,23 @@ class BlendResult(NamedTuple):
     invdepth: torch.Tensor  # (Hp, Wp)
     trans: torch.Tensor  # (Hp, Wp) final T (1 on invalid pixels)
     live: torch.Tensor  # (Hp, Wp) T on valid not-done pixels, else 0
+    chunks: torch.Tensor  # (num_tiles,) int32 run_chunk steps the blend entered
     contrib: torch.Tensor  # (P,) max over pairs and pixels of alpha*T
     best_pix: torch.Tensor  # (P,) int64 lowest padded pixel id reaching it (0 if none)
     surf_dist: torch.Tensor  # (P,) min |depth - expected depth| (FLOAT_MAX if none)
 
 
-def _check(table, sorted_gid, starts, counts, mask, num_tiles, width_pad, height_pad, run_chunk):
+def mode_of(init_trans, ed_override, early_stop: bool) -> str:
+    """Which of K1's modes a call runs (the key of launches_by_mode)."""
+    if not early_stop:
+        return "early_stop=False"
+    if ed_override is not None:
+        return "ed_override"
+    return "main" if init_trans is None else "init_trans"
+
+
+def _check(table, sorted_gid, starts, counts, mask, num_tiles, width_pad, height_pad, run_chunk,
+           init_trans, ed_override):
     dev = table.device
     if table.dtype != torch.float32 or table.dim() != 2 or table.shape[1] not in (8, 16):
         raise ValueError("table must be (P, 8) or (P, 16) float32")
@@ -48,7 +64,11 @@ def _check(table, sorted_gid, starts, counts, mask, num_tiles, width_pad, height
         raise ValueError("starts / counts need one entry per tile")
     if mask is not None and (mask.dtype != torch.uint8 or mask.numel() != width_pad * height_pad):
         raise ValueError("mask must be a (Hp * Wp,) uint8 tensor")
-    for t in (sorted_gid, starts, counts) + (() if mask is None else (mask,)):
+    for name, t in (("init_trans", init_trans), ("ed_override", ed_override)):
+        if t is not None and (t.dtype != torch.float32 or t.shape != (width_pad * height_pad,)):
+            raise ValueError(f"{name} must be a (Hp * Wp,) float32 tensor")
+    maps = tuple(t for t in (mask, init_trans, ed_override) if t is not None)
+    for t in (sorted_gid, starts, counts) + maps:
         if t.device != dev:
             raise ValueError("all blend inputs must be on one device")
     if not 1 <= run_chunk <= MAX_RUN_CHUNK:
@@ -71,15 +91,21 @@ def blend_tiles(
     run_chunk: int,
     with_surface: bool,
     surface_compact: bool,
+    init_trans: Optional[torch.Tensor] = None,
+    ed_override: Optional[torch.Tensor] = None,
+    early_stop: bool = True,
+    bg: float = BACKGROUND,
 ) -> BlendResult:
     """Blend every tile of one camera; CUDA kernel for CUDA tensors, the
     PyTorch twin for CPU tensors."""
     grid_w = width_pad // TILE
     num_tiles = grid_w * (height_pad // TILE)
-    _check(table, sorted_gid, starts, counts, mask, num_tiles, width_pad, height_pad, run_chunk)
+    _check(table, sorted_gid, starts, counts, mask, num_tiles, width_pad, height_pad, run_chunk,
+           init_trans, ed_override)
     kw = dict(
         width=width, height=height, width_pad=width_pad, height_pad=height_pad,
         run_chunk=run_chunk, with_surface=with_surface, surface_compact=surface_compact,
+        init_trans=init_trans, ed_override=ed_override, early_stop=early_stop, bg=bg,
     )
     if table.device.type == "cpu":
         return blend_tiles_torch(table, sorted_gid, starts, counts, mask, **kw)
@@ -93,31 +119,38 @@ def blend_tiles(
     # Locals keep every buffer alive until the launch is queued.
     table, sorted_gid = table.contiguous(), sorted_gid.contiguous()
     starts, counts = starts.contiguous(), counts.contiguous()
-    mask = None if mask is None else mask.contiguous()
+    mask, init_trans, ed_override = (
+        None if t is None else t.contiguous() for t in (mask, init_trans, ed_override)
+    )
     image = torch.empty((height_pad, width_pad, 3), dtype=torch.float32, device=dev)
     depth = torch.empty((height_pad, width_pad), dtype=torch.float32, device=dev)
     invdepth = torch.empty_like(depth)
     trans = torch.empty_like(depth)
     live = torch.empty_like(depth)
+    chunks = torch.empty(num_tiles, dtype=torch.int32, device=dev)
     key = torch.zeros(P, dtype=torch.int64, device=dev)
     surf = torch.full((P,), FLOAT_MAX, dtype=torch.float32, device=dev)
     rc = lib.gs2pc_blend_tiles(
         table.data_ptr(), sorted_gid.data_ptr() if sorted_gid.numel() else None,
-        starts.data_ptr(), counts.data_ptr(), None if mask is None else mask.data_ptr(),
-        table.shape[1], num_tiles, width, height, grid_w, width_pad, run_chunk,
-        BACKGROUND, int(with_surface), int(surface_compact),
+        starts.data_ptr(), counts.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in (mask, init_trans, ed_override)),
+        int(early_stop), table.shape[1], num_tiles, width, height, grid_w, width_pad,
+        run_chunk, float(bg), int(with_surface), int(surface_compact),
         image.data_ptr(), depth.data_ptr(), invdepth.data_ptr(), trans.data_ptr(),
-        live.data_ptr(), key.data_ptr(), surf.data_ptr(), stream_ptr(table),
+        live.data_ptr(), chunks.data_ptr(), key.data_ptr(), surf.data_ptr(), stream_ptr(table),
     )
     blend_tiles.launches += 1
+    blend_tiles.launches_by_mode[mode_of(init_trans, ed_override, early_stop)] += 1
     check(rc, "gs2pc_blend_tiles")
     hit = key > 0
     contrib = torch.where(hit, (key >> 32).to(torch.int32).view(torch.float32), 0.0)
     best_pix = torch.where(hit, 0xFFFFFFFF - (key & 0xFFFFFFFF), 0)
-    return BlendResult(image, depth, invdepth, trans, live, contrib, best_pix, surf)
+    return BlendResult(image, depth, invdepth, trans, live, chunks, contrib, best_pix, surf)
 
 
+# Kernel launches, in all and by mode_of(); a caller resets them (= 0, .clear()).
 blend_tiles.launches = 0
+blend_tiles.launches_by_mode = collections.Counter()
 
 
 def _untile(t: torch.Tensor, grid_h: int, grid_w: int) -> torch.Tensor:
@@ -141,6 +174,10 @@ def blend_tiles_torch(
     run_chunk: int,
     with_surface: bool,
     surface_compact: bool,
+    init_trans: Optional[torch.Tensor] = None,
+    ed_override: Optional[torch.Tensor] = None,
+    early_stop: bool = True,
+    bg: float = BACKGROUND,
 ) -> BlendResult:
     """The plain PyTorch twin of K1, on any device.
 
@@ -168,6 +205,7 @@ def blend_tiles_torch(
     out_einv = torch.zeros((num_tiles, TPX), device=dev)
     out_T = torch.ones((num_tiles, TPX), device=dev)
     out_live = torch.zeros((num_tiles, TPX), device=dev)
+    out_chunks = torch.zeros(num_tiles, dtype=torch.int32, device=dev)
     surf = torch.full((P + 1,), FLOAT_MAX, device=dev)
     rec_gid, rec_m, rec_apix = [], [], []
 
@@ -191,7 +229,7 @@ def blend_tiles_torch(
         pxf, pyf = gx.float(), gy.float()
         start, count = starts[tids].long(), counts[tids].long()
 
-        T = torch.ones(valid.shape, device=dev)
+        T = torch.ones(valid.shape, device=dev) if init_trans is None else init_trans[pixid]
         done = ~valid
         rgb = torch.zeros(valid.shape + (3,), device=dev)
         ed = torch.zeros(valid.shape, device=dev)
@@ -228,7 +266,7 @@ def blend_tiles_torch(
                 alpha = torch.clamp(row[..., 5] * torch.exp(power), max=ALPHA_MAX)
                 ok = (power <= 0.0) & (alpha >= ALPHA_MIN) & in_run[:, j, None] & ~done
                 test_T = T * (1.0 - alpha)
-                trigger = ok & (test_T < T_EPS)
+                trigger = ok & (test_T < T_EPS) if early_stop else torch.zeros_like(ok)
                 blend = ok & ~trigger
                 w = torch.where(blend, alpha * T, 0.0)
                 rgb = rgb + w[..., None] * col[:, j, None, :]
@@ -247,20 +285,22 @@ def blend_tiles_torch(
             rec_apix.append(apix[keep])
 
         sl = slice(b0, b0 + tids.shape[0])
-        out_rgb[sl] = torch.where(valid[..., None], rgb + T[..., None] * BACKGROUND, 0.0)
+        out_rgb[sl] = torch.where(valid[..., None], rgb + T[..., None] * bg, 0.0)
         ed_v = torch.where(valid, ed, 0.0)
         out_ed[sl] = ed_v
         out_einv[sl] = torch.where(valid, einv, 0.0)
         out_T[sl] = torch.where(valid, T, 1.0)
         out_live[sl] = torch.where(valid & ~done, T, 0.0)
+        out_chunks[sl] = n_stream.to(torch.int32)
 
         if with_surface:
+            ed_t = ed_v if ed_override is None else ed_override[pixid]
             cnt_s = torch.minimum(count, n_stream * Rs) if surface_compact else count
             n_surf = -(-int(cnt_s.max()) // Rs) if cnt_s.numel() else 0
             for r in range(n_surf):
                 gid, in_run = chunk_rows(start, cnt_s, r)
                 dep = table[gid, 6]
-                dist = (dep[:, None, :] - ed_v[:, :, None]).abs()
+                dist = (dep[:, None, :] - ed_t[:, :, None]).abs()
                 dist = torch.where(valid[:, :, None] & in_run[:, None, :], dist, FLOAT_MAX)
                 sd = dist.amin(dim=1)
                 tgt = torch.where(in_run, gid, P)
@@ -282,6 +322,7 @@ def blend_tiles_torch(
         invdepth=_untile(out_einv, grid_h, grid_w),
         trans=_untile(out_T, grid_h, grid_w),
         live=_untile(out_live, grid_h, grid_w),
+        chunks=out_chunks,
         contrib=contrib,
         best_pix=best_pix,
         surf_dist=surf[:P],

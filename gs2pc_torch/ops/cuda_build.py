@@ -1,11 +1,15 @@
-"""Build and load the package's CUDA kernels (gs2pc_torch/csrc/*.cu).
+"""Build and load the package's native code: the CUDA kernels
+(gs2pc_torch/csrc/*.cu, ``nvcc``) and the host PLY expand-writer
+(gs2pc_torch/csrc/plyio.cpp, ``g++``).
 
-The sources are compiled on first use with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, under ``build/gs2pc_torch/`` of
-the checkout (named by a hash of the sources, so an edited kernel is
-rebuilt), and loaded with ``ctypes``.  Nothing here runs at import time:
-a machine without ``nvcc`` or a card imports the package and uses the
-PyTorch twins on CPU tensors.
+Each is compiled on first use into a shared library with a plain C
+interface under ``build/gs2pc_torch/`` of the checkout (named by a hash of
+its sources and flags, so an edited source is rebuilt) and loaded with
+``ctypes``.  Nothing here runs at import time: a machine without ``nvcc``
+or a card imports the package and uses the PyTorch twins on CPU tensors.
+The kernels have no fallback: a failed ``nvcc`` build raises.  The PLY
+writer has one: without ``g++``, or when its build fails, ``load_plyio``
+returns None and gs2pc_torch.io.ply writes with numpy.
 """
 
 from __future__ import annotations
@@ -24,12 +28,17 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"]
 
 _LOCK = threading.Lock()
 _LIB = None
-# The loaded library's path and the compiler's register / shared-memory
-# report ("" when the library was already built).
+_PLYIO = None
+_PLYIO_TRIED = False
+# The loaded kernel library's path and the compiler's register /
+# shared-memory report ("" when the library was already built).
 BUILD_INFO: dict = {}
+# The PLY writer's library path, or the reason it is not loaded.
+PLYIO_INFO: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,8 +47,8 @@ _SIGNATURES = {
     "gs2pc_write_pairs": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P]),
     "gs2pc_blend_tiles": (
         _I,
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I,
-         _P, _P, _P, _P, _P, _P, _P, _P],
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+         _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     ),
 }
 
@@ -55,16 +64,24 @@ def _nvcc() -> str:
     return found
 
 
-def _sources() -> list[str]:
-    return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
-
-
-def _digest() -> str:
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(glob.glob(os.path.join(_CSRC, "*.cu*"))):
+def _build(compiler: str, flags: list, sources: list, hashed: list, stem: str):
+    """Compile ``sources`` into ``build/gs2pc_torch/<stem>_<hash>.so`` unless
+    that file exists.  Returns (path or None on a failed build, the
+    compiler's stderr; "" when the library was already built)."""
+    h = hashlib.sha1(" ".join(flags).encode())
+    for path in sorted(hashed):
         with open(path, "rb") as fh:
             h.update(os.path.basename(path).encode() + fh.read())
-    return h.hexdigest()[:16]
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    so = os.path.join(_BUILD_DIR, f"{stem}_{h.hexdigest()[:16]}.so")
+    if os.path.exists(so):
+        return so, ""
+    tmp = f"{so}.{os.getpid()}.tmp"
+    proc = subprocess.run([compiler, *flags, "-o", tmp, *sources], capture_output=True, text=True)
+    if proc.returncode != 0:
+        return None, f"{os.path.basename(compiler)} failed ({proc.returncode}):\n{proc.stderr}"
+    os.replace(tmp, so)
+    return so, proc.stderr
 
 
 def load_library() -> ctypes.CDLL:
@@ -73,19 +90,12 @@ def load_library() -> ctypes.CDLL:
     with _LOCK:
         if _LIB is not None:
             return _LIB
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        so = os.path.join(_BUILD_DIR, f"libgs2pc_torch_{_digest()}.so")
-        log = ""
-        if not os.path.exists(so):
-            tmp = f"{so}.{os.getpid()}.tmp"
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-            log = proc.stderr
-            os.replace(tmp, so)
+        so, log = _build(
+            _nvcc(), NVCC_FLAGS, sorted(glob.glob(os.path.join(_CSRC, "*.cu"))),
+            glob.glob(os.path.join(_CSRC, "*.cu*")), "libgs2pc_torch",
+        )
+        if so is None:
+            raise RuntimeError(log)
         BUILD_INFO.update(log=log, path=so)
         lib = ctypes.CDLL(so)
         for name, (restype, argtypes) in _SIGNATURES.items():
@@ -93,6 +103,41 @@ def load_library() -> ctypes.CDLL:
             fn.restype = restype
             fn.argtypes = argtypes
         _LIB = lib
+        return lib
+
+
+def load_plyio() -> ctypes.CDLL | None:
+    """Build (once per source version) and load the PLY expand-writer, or
+    None when there is no ``g++`` or the build fails (PLYIO_INFO says
+    which)."""
+    global _PLYIO, _PLYIO_TRIED
+    with _LOCK:
+        if _PLYIO is not None or _PLYIO_TRIED:
+            return _PLYIO
+        _PLYIO_TRIED = True
+        gxx = shutil.which("g++")
+        if gxx is None:
+            PLYIO_INFO.update(error="g++ not found")
+            return None
+        src = os.path.join(_CSRC, "plyio.cpp")
+        so, log = _build(gxx, GXX_FLAGS, [src], [src], "libgs2pc_torch_plyio")
+        if so is None:
+            PLYIO_INFO.update(error=log)
+            return None
+        PLYIO_INFO.update(path=so)
+        lib = ctypes.CDLL(so)
+        lib.gs2pc_write_ply_expand.restype = ctypes.c_int
+        lib.gs2pc_write_ply_expand.argtypes = [
+            ctypes.c_char_p,  # path
+            ctypes.c_int64,  # total points
+            ctypes.c_void_p,  # points f32 (total, 3)
+            ctypes.c_void_p,  # counts i64 (P,)
+            ctypes.c_int64,  # P
+            ctypes.c_void_p,  # colours u8 (P, 3)
+            ctypes.c_void_p,  # normals f32 (P, 3) or NULL
+            ctypes.c_int64,  # chunk size
+        ]
+        _PLYIO = lib
         return lib
 
 

@@ -8,6 +8,11 @@ searchsorted -> run cap and masked-tile zeroing -> blend (K1, which also
 reduces the per-Gaussian max contribution, best pixel and surface
 distance).  The JAX package's static pair budget, waterfill and aligned
 pair layout exist for fixed shapes on the TPU and have no counterpart here.
+
+``render_tile_camera``'s ``init_trans`` / ``early_stop`` / ``want_trans`` /
+``want_best_pix`` / ``surface_ed_override`` / ``white_bkgd`` serve the
+depth-slab renderer (gs2pc_torch.parallel.gauss_shard), as in the JAX
+package; K1 implements each in the kernel and in its twin.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from gs2pc_torch.ops.blend import TILE, RenderOutput
+from gs2pc_torch.ops.blend import BACKGROUND, TILE, RenderOutput
 from gs2pc_torch.ops.blend_kernel import blend_tiles
 from gs2pc_torch.ops.projection import Preprocessed, preprocess
 
@@ -168,13 +173,14 @@ def _tile_max(x: torch.Tensor, cfg: TileConfig) -> torch.Tensor:
 
 
 def blend_inputs(prep: Preprocessed, colours: torch.Tensor, camera, cfg: TileConfig,
-                 calc_surface_distance: bool):
+                 calc_surface_distance: bool, **modes):
     """Everything K1 takes for one camera, and the per-tile run lengths.
 
     Returns (args, kwargs, runs): ``blend_tiles(*args, **kwargs)`` blends
     the camera; ``runs`` are the uncapped per-tile pair counts, zero on
     fully masked tiles (they blend nothing and stay out of the surface
-    min)."""
+    min).  ``modes`` (init_trans, ed_override, early_stop, bg) pass
+    through to K1."""
     table = pack_blend_table(prep, colours, compact=cfg.compact)
     keys, gids = duplicate_with_keys(prep, cfg, circle_cull=not calc_surface_distance)
     if gids.numel() >= 2**31:
@@ -190,7 +196,7 @@ def blend_inputs(prep: Preprocessed, colours: torch.Tensor, camera, cfg: TileCon
     kwargs = dict(
         width=camera.width, height=camera.height, width_pad=cfg.width_pad,
         height_pad=cfg.height_pad, run_chunk=cfg.run_chunk,
-        with_surface=calc_surface_distance, surface_compact=cfg.surface_compact,
+        with_surface=calc_surface_distance, surface_compact=cfg.surface_compact, **modes,
     )
     return args, kwargs, runs
 
@@ -204,26 +210,43 @@ def render_tile_camera(
     camera,
     cfg: TileConfig,
     calc_surface_distance: bool = True,
+    white_bkgd: bool = True,
+    init_trans: Optional[torch.Tensor] = None,
+    early_stop: bool = True,
+    want_trans: bool = False,
+    want_best_pix: bool = False,
+    surface_ed_override: Optional[torch.Tensor] = None,
 ) -> RenderOutput:
     """Render one ``camera.Camera`` (its own mask applies); returns the image
     and the per-Gaussian accumulator inputs, as
-    gs2pc.ops.rasterize.render_tile_camera."""
+    gs2pc.ops.rasterize.render_tile_camera.
+
+    The depth-slab modes: ``init_trans`` (Hp * Wp,) seeds each pixel's
+    transmittance, ``early_stop=False`` turns the T < 1e-4 stop off,
+    ``surface_ed_override`` (Hp * Wp,) is the depth the surface pass
+    measures against, ``want_trans`` / ``want_best_pix`` fill
+    ``RenderOutput.trans`` / ``best_pix``; the background is white, or 0
+    with ``white_bkgd=False``."""
     prep = preprocess(
         means, cov_factors, opacities, alive, camera,
         adaptive_radius=not calc_surface_distance,
     )
-    args, kwargs, runs = blend_inputs(prep, colours, camera, cfg, calc_surface_distance)
+    args, kwargs, runs = blend_inputs(
+        prep, colours, camera, cfg, calc_surface_distance,
+        init_trans=init_trans, ed_override=surface_ed_override, early_stop=early_stop,
+        bg=BACKGROUND if white_bkgd else 0.0,
+    )
     res = blend_tiles(*args, **kwargs)
 
     # Counters [pairs blended, window-truncated (none: the expansion is
     # exact), run-cap-dropped pairs, run-cap drops on tiles whose pixels
     # still had visible transmittance].
-    d_runs = runs.to(torch.float32)
+    d_runs = runs.to(torch.float64)
     cap_drop_tiles = torch.clamp(d_runs - cfg.run_cap, min=0.0)
     live_tile = _tile_max(res.live, cfg) > _LIVE_T_FLOOR
     diag = torch.stack([
         torch.clamp(d_runs, max=float(cfg.run_cap)).sum(),
-        torch.zeros((), device=d_runs.device),
+        torch.zeros((), dtype=torch.float64, device=d_runs.device),
         cap_drop_tiles.sum(),
         torch.where(live_tile, cap_drop_tiles, 0.0).sum(),
     ])
@@ -240,5 +263,7 @@ def render_tile_camera(
         contrib=contrib,
         best_colour=best_colour,
         surf_dist=res.surf_dist,
+        trans=res.trans if want_trans else None,
+        best_pix=res.best_pix if want_best_pix else None,
         n_dropped=diag,
     )

@@ -1,0 +1,257 @@
+"""Gaussian-axis (depth-slab) sharded renderer (counterpart of
+gs2pc.parallel.gauss_shard).
+
+Alpha compositing is associative over depth-ordered segments,
+
+    (C1, T1) (+) (C2, T2) = (C1 + T1 * C2,  T1 * T2),
+
+so each device composites one contiguous DEPTH SLAB of the scene and the
+slabs combine with a handful of reductions.  Per camera, on device d of D
+(scene on every device):
+
+ 1. slab assignment: depth quantile boundaries from a strided sample of
+    in-front view depths, computed identically for every device, ties kept
+    in one slab; each device compacts its slab to at most
+    ``slab_capacity(P, D)`` Gaussians (~1.25 P/D), so projection, pair
+    expansion and the sort scale ~1/D;
+ 2. pass 1: trigger-free alpha product over the slab (K1 with
+    ``early_stop=False``) -> per-pixel slab transmittance T_d;
+ 3. the T_d are gathered on ``devices[0]``; exclusive prefix
+    t0_d = prod_{d' < d} T_d' and the global product;
+ 4. pass 2: full blend with ``init_trans=t0_d`` -> absolute colour / depth
+    contributions and per-Gaussian max contribution and best pixel (a pixel
+    whose upstream product is already below 1e-4 stops at once, which
+    reproduces the single-device stop);
+ 5. combine: image / expected depth / inverse depth summed, the white
+    background added once from the global product; max contribution max;
+    best colour gathered from the COMBINED image at each slab's best pixel;
+ 6. pass 3 (surface pass on): the surface sweep against the combined
+    expected-depth map (``surface_ed_override``), min over slabs.
+
+The JAX package's collectives become plain tensor code: ``all_gather`` is
+a ``torch.stack`` of copies to ``devices[0]``, ``psum`` / ``pmax`` / ``pmin``
+are ``sum`` / ``amax`` / ``amin`` over that stack, and each result is
+copied back to a device where its next pass needs it.  A device may
+repeat: on one card, ``[cuda:0] * 4`` keeps four slabs' buffers and one
+scene (``.to`` on the same device does not copy).  The devices are walked
+in turn from one thread; overlapping them (a thread, or a process over
+NCCL, per card) is later work for a machine with more than one card.
+
+Known divergences from the single-device renderer, as in the JAX package:
+(a) the background on early-stopped pixels uses the trigger-free product,
+which differs from the stopped value by less than 1e-4; (b) the per-tile
+``run_cap`` applies per SLAB, so a tile that saturates it blends up to
+D x run_cap pairs, more of the scene than one device keeps.  Slab-buffer
+overflow (Gaussians past the slack, dropped for that camera) is counted
+in ``n_dropped[1]``.  The port has no pair budget, so the JAX package's
+divergence (c) does not arise.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Sequence
+
+import torch
+
+from gs2pc_torch.ops.blend import FLOAT_MAX, RenderOutput
+from gs2pc_torch.ops.linalg3 import dotrow3
+from gs2pc_torch.ops.projection import NEAR_Z
+from gs2pc_torch.ops.rasterize import TileConfig, render_tile_camera
+from gs2pc_torch.parallel.mesh import split_evenly
+from gs2pc_torch.sweep import (
+    RenderArrays,
+    SweepAccumulators,
+    init_accumulators,
+    merge_accumulators,
+    update_accumulators,
+)
+
+_SLAB_SAMPLE = 4096  # strided depth sample for quantile boundaries
+
+
+def _slab_mask(means, viewmatrix, alive, d: int, n_dev: int) -> torch.Tensor:
+    """Deterministic depth-slab assignment (identical for every device)."""
+    # preprocess()'s depth expression, so the assignment agrees with the
+    # depths the passes sort by, bit for bit.
+    depth = dotrow3(means, viewmatrix[2, :3], viewmatrix[2, 3])
+    assignable = alive & (depth > NEAR_Z)
+    if n_dev == 1:
+        return assignable
+    stride = max(means.shape[0] // _SLAB_SAMPLE, 1)
+    samp = torch.where(assignable[::stride], depth[::stride], FLOAT_MAX)
+    samp_sorted = torch.sort(samp).values
+    n_ok = (samp < FLOAT_MAX).sum()
+    qidx = (n_ok * torch.arange(1, n_dev, device=means.device)) // n_dev
+    bounds = samp_sorted[torch.clamp(qidx, 0, samp.shape[0] - 1)]
+    # right=True: Gaussians exactly on a boundary all land in the same
+    # slab, so equal depths never straddle a device split.
+    slab = torch.searchsorted(bounds, depth, right=True)
+    return assignable & (slab == d)
+
+
+def slab_capacity(p: int, n_dev: int, slack: float = 1.25) -> int:
+    """Per-device slab buffer size: ~P/D with 25% quantile-error slack,
+    rounded to a multiple of 256, capped at P."""
+    base = -(-p // max(n_dev, 1))
+    cap = int(base * slack) + 256
+    return min(-(-cap // 256) * 256, p)
+
+
+class _Slab(NamedTuple):
+    idx: torch.Tensor  # (n,) int64 full-axis ids of the slab's Gaussians
+    scene: RenderArrays  # the slab's rows, all alive
+    overflow: int  # slab Gaussians beyond slab_capacity, dropped this camera
+
+
+def _compact(scene: RenderArrays, camera, d: int, n_dev: int) -> _Slab:
+    p_full = scene.means.shape[0]
+    idx = torch.nonzero(_slab_mask(scene.means, camera.viewmatrix, scene.alive, d, n_dev))[:, 0]
+    p_slab = slab_capacity(p_full, n_dev)
+    overflow = max(idx.shape[0] - p_slab, 0)
+    idx = idx[:p_slab]
+    rows = [t[idx] for t in scene[:4]]
+    alive = torch.ones(idx.shape[0], dtype=torch.bool, device=idx.device)
+    return _Slab(idx, RenderArrays(*rows, alive), overflow)
+
+
+def _to_full(v: torch.Tensor, idx: torch.Tensor, p_full: int, fill: float) -> torch.Tensor:
+    """(n[, k]) slab values -> (P[, k]) full axis (idx is unique)."""
+    full = v.new_full((p_full,) + v.shape[1:], fill)
+    full[idx] = v
+    return full
+
+
+def _render_one_gauss_sharded(
+    scenes: Sequence[RenderArrays],
+    camera,
+    devices: Sequence[torch.device],
+    cfg: TileConfig,
+    calc_surface_distance: bool,
+) -> RenderOutput:
+    n_dev = len(devices)
+    home = devices[0]
+    p_full = scenes[0].means.shape[0]
+    cams = [camera.to(dev) for dev in devices]
+    slabs = [_compact(scenes[d], cams[d], d, n_dev) for d in range(n_dev)]
+
+    def render(d, **kw):
+        return render_tile_camera(*slabs[d].scene, cams[d], cfg, white_bkgd=False, **kw)
+
+    # Pass 1: trigger-free slab transmittance.
+    all_t = torch.stack([
+        render(d, calc_surface_distance=False, early_stop=False, want_trans=True)
+        .trans.reshape(-1).to(home)
+        for d in range(n_dev)
+    ])  # (D, Hp * Wp)
+    ids = torch.arange(n_dev, device=home)
+    t0 = [torch.prod(torch.where((ids < d)[:, None], all_t, 1.0), dim=0) for d in range(n_dev)]
+    t_global = torch.prod(all_t, dim=0)
+
+    # Pass 2: absolute contributions with the upstream prefix.
+    p2 = [
+        render(d, calc_surface_distance=False, init_trans=t0[d].to(devices[d]),
+               want_best_pix=True)
+        for d in range(n_dev)
+    ]
+    image = torch.stack([o.image.to(home) for o in p2]).sum(dim=0)
+    image = image + t_global.reshape(image.shape[:2])[..., None]  # white background
+    ed = torch.stack([o.depth.to(home) for o in p2]).sum(dim=0)
+    einv = torch.stack([o.invdepth.to(home) for o in p2]).sum(dim=0)
+    contrib = torch.stack([
+        _to_full(o.contrib, s.idx, p_full, 0.0).to(home) for o, s in zip(p2, slabs)
+    ]).amax(dim=0)
+
+    # Colour at the best pixel comes from the COMBINED image; each Gaussian
+    # lies in one slab, so one row per Gaussian is non-zero in the sum.
+    best = []
+    for d, (o, s) in enumerate(zip(p2, slabs)):
+        flat = image.reshape(-1, 3).to(devices[d])
+        rows = torch.where((o.contrib > 0.0)[:, None], flat[o.best_pix], 0.0)
+        best.append(_to_full(rows, s.idx, p_full, 0.0).to(home))
+    best_colour = torch.stack(best).sum(dim=0)
+
+    if calc_surface_distance:
+        # Pass 3: the surface sweep against the combined expected depth.
+        ed_flat = ed.reshape(-1)
+        surf = torch.stack([
+            _to_full(
+                render(d, calc_surface_distance=True, init_trans=t0[d].to(devices[d]),
+                       surface_ed_override=ed_flat.to(devices[d])).surf_dist,
+                slabs[d].idx, p_full, FLOAT_MAX,
+            ).to(home)
+            for d in range(n_dev)
+        ]).amin(dim=0)
+    else:
+        surf = torch.full((p_full,), FLOAT_MAX, device=home)
+
+    # Each slab counted its own pairs (the run cap applies per slab, the
+    # module docstring's divergence (b)); slab overflow goes into the
+    # window-truncation counter.
+    n_dropped = torch.stack([o.n_dropped.to(home) for o in p2]).sum(dim=0)
+    n_dropped[1] += sum(s.overflow for s in slabs)
+
+    return RenderOutput(
+        image=image,
+        depth=ed,
+        invdepth=einv,
+        radii=torch.zeros(p_full, device=home),  # unused by the accumulators
+        contrib=contrib,
+        best_colour=best_colour,
+        surf_dist=surf,
+        n_dropped=n_dropped,
+    )
+
+
+def render_sweep_gauss_sharded(
+    scene: RenderArrays,
+    cameras,
+    cfg: TileConfig,
+    devices: Sequence[torch.device],
+    calc_surface_distance: bool = True,
+) -> SweepAccumulators:
+    """Camera sweep with each camera's Gaussians split into depth slabs over
+    ``devices``: K1 runs three times per slab and camera with the surface
+    pass on (twice without).  Accumulators come out on ``devices[0]``."""
+    scenes = [scene.to(dev) for dev in devices]
+    acc = init_accumulators(scene.means.shape[0], device=devices[0])
+    for i in range(cameras.num_cameras):
+        out = _render_one_gauss_sharded(
+            scenes, cameras.at(i), devices, cfg, calc_surface_distance,
+        )
+        acc = update_accumulators(acc, out)
+    return acc
+
+
+def grid_2d(devices: Sequence[torch.device]) -> list[list[torch.device]]:
+    """Near-square (cams x gauss) split of ``devices`` (make_2d_mesh's): the
+    largest divisor of D that is <= sqrt(D) is the number of camera rows;
+    row r holds the gauss-axis devices devices[r * G:(r + 1) * G]."""
+    n = len(devices)
+    rows = next(c for c in range(math.isqrt(n), 0, -1) if n % c == 0)
+    g = n // rows
+    return [list(devices[r * g:(r + 1) * g]) for r in range(rows)]
+
+
+def render_sweep_2d(
+    scene: RenderArrays,
+    cameras,
+    cfg: TileConfig,
+    devices: Sequence[torch.device],
+    calc_surface_distance: bool = True,
+) -> SweepAccumulators:
+    """Camera-DP x Gaussian-slab sweep (gs2pc.parallel.gauss_shard.
+    render_sweep_2d): cameras split over the rows of ``grid_2d(devices)`` in
+    contiguous blocks whose sizes differ by at most one; each row sweeps its
+    block with the depth slabs split over the row's devices; the rows'
+    accumulators merge in order on ``devices[0]`` (gs2pc_torch.sweep.
+    merge_accumulators)."""
+    rows = grid_2d(devices)
+    acc = init_accumulators(scene.means.shape[0], device=devices[0])
+    for row, (lo, hi) in zip(rows, split_evenly(cameras.num_cameras, len(rows))):
+        if hi > lo:
+            part = render_sweep_gauss_sharded(
+                scene, cameras.sub(lo, hi, row[0]), cfg, row, calc_surface_distance,
+            )
+            acc = merge_accumulators(acc, part.to(devices[0]))
+    return acc

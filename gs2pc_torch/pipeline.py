@@ -1,20 +1,22 @@
-"""End-to-end conversion on one device: load -> camera sweep -> cull chain
--> PSD clamp -> sample -> host point cloud (counterpart of
-gs2pc.pipeline.convert_3dgs_to_pc on one device).
+"""End-to-end conversion: load -> camera sweep (on one device, or sharded
+over several) -> cull chain -> PSD clamp -> sample -> host point cloud
+(counterpart of gs2pc.pipeline.convert_3dgs_to_pc).
 
 Culled Gaussians stay in place with keep_mask False and get a zero point
 quota, as in the JAX package, so every cull predicate sees the initial set.
+The sampler runs on the first device; the JAX package's split of its point
+axis over the devices changes no value and is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
-from gs2pc.utils.config import GaussPointCloudSettings
+from gs2pc_torch.utils.config import GaussPointCloudSettings
 from gs2pc_torch.camera import build_camera_batch
 from gs2pc_torch.io.colmap import load_transform_data
 from gs2pc_torch.io.gaussians_io import load_gaussians
@@ -24,7 +26,14 @@ from gs2pc_torch.models.gaussians import Gaussians
 from gs2pc_torch.ops.blend import FLOAT_MAX
 from gs2pc_torch.ops.rasterize import TileConfig
 from gs2pc_torch.ops.sampler import distribute_points, sample_points
-from gs2pc_torch.sweep import SweepAccumulators, render_sweep
+from gs2pc_torch.parallel import mesh
+from gs2pc_torch.parallel.gauss_shard import render_sweep_2d, render_sweep_gauss_sharded
+from gs2pc_torch.sweep import (
+    SweepAccumulators,
+    render_arrays,
+    render_sweep,
+    render_sweep_sharded,
+)
 from gs2pc_torch.utils import log
 
 TRUNCATION_WARN_FRACTION = 0.005
@@ -38,7 +47,6 @@ _UNSUPPORTED = (
     (lambda s: s.generate_mesh, "--generate_mesh", 4),
     (lambda s: s.save_sweep is not None, "--save_sweep", 5),
     (lambda s: s.load_sweep is not None, "--load_sweep", 5),
-    (lambda s: s.shard_axis != "cams", "--shard_axis gauss|both", 6),
     (lambda s: s.auto_capacity, "--auto_capacity", 7),
 )
 
@@ -158,14 +166,55 @@ class Conversion(NamedTuple):
     # Summed sweep counters [pairs blended, window-truncated, run-cap
     # dropped, run-cap dropped on live tiles]; None without a sweep.
     sweep_diag: Optional[list]
+    # Which PLY writer ran ("native_expand" or "numpy"), once the CLI wrote.
+    writer: Optional[str] = None
 
 
-def run_render_sweep(gaussians, cameras, settings) -> SweepAccumulators:
+def resolve_num_devices(num_devices: int, settings: GaussPointCloudSettings, device):
+    """The --num_devices contract: 0 means every local card of ``device``'s
+    type (one for the CPU).  When that resolves to one device, a sharded
+    --shard_axis falls back to the single-device sweep with a warning; an
+    EXPLICIT --num_devices 1 with a sharded axis raises in run_render_sweep
+    instead, since ignoring an explicit request would hide a mistake."""
+    if num_devices == 0:
+        num_devices = torch.cuda.device_count() if device.type == "cuda" else 1
+        if num_devices == 1 and settings.shard_axis != "cams":
+            log.warn(f"--shard_axis {settings.shard_axis} ignored: only one local device")
+            settings = settings._replace(shard_axis="cams")
+    return num_devices, settings
+
+
+def sweep_devices(device: torch.device, num_devices: int) -> list:
+    """The sweep's devices: ``device`` alone, the first N cards for a CUDA
+    ``device`` (raising if the machine has fewer), or N times the CPU."""
+    if num_devices == 1:
+        return [device]
+    if device.type == "cuda":
+        return mesh.devices(num_devices)
+    return [device] * num_devices
+
+
+def run_render_sweep(
+    gaussians, cameras, settings, devices: Optional[Sequence[torch.device]] = None
+) -> SweepAccumulators:
+    """The camera sweep over ``devices`` (default: the scene's device) on the
+    axis ``settings.shard_axis`` names; accumulators on ``devices[0]``."""
+    devices = list(devices) if devices is not None else [gaussians.device]
+    if settings.shard_axis != "cams" and len(devices) <= 1:
+        raise ValueError(
+            f"--shard_axis {settings.shard_axis} needs --num_devices > 1 "
+            "(it would otherwise be silently ignored)"
+        )
     cfg = tile_config(settings, cameras.width_pad, cameras.height_pad)
-    return render_sweep(
-        gaussians, cameras, cfg,
-        calc_surface_distance=settings.surface_distance_std is not None,
-    )
+    scene = render_arrays(gaussians)
+    csd = settings.surface_distance_std is not None
+    if settings.shard_axis == "gauss":
+        return render_sweep_gauss_sharded(scene, cameras, cfg, devices, calc_surface_distance=csd)
+    if settings.shard_axis == "both":
+        return render_sweep_2d(scene, cameras, cfg, devices, calc_surface_distance=csd)
+    if len(devices) > 1:
+        return render_sweep_sharded(scene, cameras, cfg, devices, calc_surface_distance=csd)
+    return render_sweep(scene, cameras, cfg, calc_surface_distance=csd)
 
 
 def convert_3dgs_to_pc(
@@ -175,12 +224,17 @@ def convert_3dgs_to_pc(
     settings: GaussPointCloudSettings,
     *,
     device,
+    num_devices: int = 0,
 ) -> Conversion:
-    """The full conversion on ``device``; returns the host point cloud."""
+    """The full conversion on ``device``, with the camera sweep over
+    ``num_devices`` devices (0: every local card; see resolve_num_devices
+    and sweep_devices); returns the host point cloud."""
     check_supported(settings)
     set_precision()
     device = torch.device(device)
     log.set_quiet(settings.quiet)
+    num_devices, settings = resolve_num_devices(num_devices, settings, device)
+    devices = sweep_devices(device, num_devices)
 
     transforms = intrinsics = None
     if transform_path is not None:
@@ -220,7 +274,7 @@ def convert_3dgs_to_pc(
                 transforms, intrinsics, colour_resolution=settings.colour_resolution,
                 masks=mask_images, device=device,
             )
-            acc = run_render_sweep(gaussians, cameras, settings)
+            acc = run_render_sweep(gaussians, cameras, settings, devices).to(device)
         diag = report_truncation(acc)
         with log.phase("cull_chain"):
             gaussians = cull_chain(gaussians, acc, settings)

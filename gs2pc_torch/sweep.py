@@ -1,5 +1,6 @@
-"""Single-device camera sweep + per-Gaussian accumulators (counterpart of
-the single-device part of gs2pc.parallel.sweep).
+"""Camera sweeps + per-Gaussian accumulators (counterpart of
+gs2pc.parallel.sweep): the single-device sweep and the camera
+data-parallel sweep over a list of devices.
 
   max_contribution      running max of the per-image max alpha*T
   colours               rendered colour at the winning pixel, [0, 1]
@@ -10,12 +11,34 @@ the single-device part of gs2pc.parallel.sweep).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
 from gs2pc_torch.ops.blend import FLOAT_MAX, RenderOutput
 from gs2pc_torch.ops.rasterize import TileConfig, render_tile_camera
+from gs2pc_torch.parallel.mesh import split_evenly
+
+
+class RenderArrays(NamedTuple):
+    """What the renderer reads of a scene (the JAX package's scene_arrays)."""
+
+    means: torch.Tensor  # (P, 3)
+    cov_factors: torch.Tensor  # (P, 3, 3)
+    opacities: torch.Tensor  # (P,)
+    colours: torch.Tensor  # (P, 3)
+    alive: torch.Tensor  # (P,) bool
+
+    def to(self, device) -> "RenderArrays":
+        """On ``device``; tensors already there are not copied."""
+        return RenderArrays(*(t.to(device) for t in self))
+
+
+def render_arrays(gaussians) -> RenderArrays:
+    return RenderArrays(
+        gaussians.xyz, gaussians.covariance_factors(), gaussians.opacities,
+        gaussians.colours, gaussians.keep_mask,
+    )
 
 
 class SweepAccumulators(NamedTuple):
@@ -23,7 +46,10 @@ class SweepAccumulators(NamedTuple):
     colours: torch.Tensor  # (P, 3)
     total_contribution: torch.Tensor  # (P,)
     min_surface_distance: torch.Tensor  # (P,)
-    n_dropped: Optional[torch.Tensor] = None  # (4,)
+    n_dropped: Optional[torch.Tensor] = None  # (4,) float64
+
+    def to(self, device) -> "SweepAccumulators":
+        return SweepAccumulators(*(None if t is None else t.to(device) for t in self))
 
 
 def init_accumulators(num_gaussians: int, *, device) -> SweepAccumulators:
@@ -33,7 +59,7 @@ def init_accumulators(num_gaussians: int, *, device) -> SweepAccumulators:
         colours=torch.zeros((num_gaussians, 3), **f32),
         total_contribution=torch.zeros(num_gaussians, **f32),
         min_surface_distance=torch.full((num_gaussians,), FLOAT_MAX, **f32),
-        n_dropped=torch.zeros(4, **f32),
+        n_dropped=torch.zeros(4, dtype=torch.float64, device=device),
     )
 
 
@@ -49,18 +75,55 @@ def update_accumulators(acc: SweepAccumulators, out: RenderOutput) -> SweepAccum
     )
 
 
+def merge_accumulators(a: SweepAccumulators, b: SweepAccumulators) -> SweepAccumulators:
+    """Merge the accumulators of two disjoint camera sets, ``b``'s cameras
+    after ``a``'s.  Ties keep ``a``: the first-camera-wins rule of
+    update_accumulators, so merging consecutive blocks in order gives the
+    single sweep's winners exactly."""
+    upd = b.max_contribution > a.max_contribution
+    return SweepAccumulators(
+        max_contribution=torch.where(upd, b.max_contribution, a.max_contribution),
+        colours=torch.where(upd[:, None], b.colours, a.colours),
+        total_contribution=a.total_contribution + b.total_contribution,
+        min_surface_distance=torch.minimum(a.min_surface_distance, b.min_surface_distance),
+        n_dropped=a.n_dropped + b.n_dropped,
+    )
+
+
 def render_sweep(
-    gaussians, cameras, cfg: TileConfig, calc_surface_distance: bool = True
+    scene: RenderArrays, cameras, cfg: TileConfig, calc_surface_distance: bool = True
 ) -> SweepAccumulators:
-    """Render every camera in turn and fold it into the accumulators."""
-    means = gaussians.xyz
-    cov_factors = gaussians.covariance_factors()
-    acc = init_accumulators(gaussians.num_gaussians, device=means.device)
+    """Render every camera in turn on the scene's device and fold it into
+    the accumulators."""
+    acc = init_accumulators(scene.means.shape[0], device=scene.means.device)
     for i in range(cameras.num_cameras):
         out = render_tile_camera(
-            means, cov_factors, gaussians.opacities, gaussians.colours,
-            gaussians.keep_mask, cameras.at(i), cfg,
-            calc_surface_distance=calc_surface_distance,
+            *scene, cameras.at(i), cfg, calc_surface_distance=calc_surface_distance,
         )
         acc = update_accumulators(acc, out)
+    return acc
+
+
+def render_sweep_sharded(
+    scene: RenderArrays,
+    cameras,
+    cfg: TileConfig,
+    devices: Sequence[torch.device],
+    calc_surface_distance: bool = True,
+) -> SweepAccumulators:
+    """Camera data-parallel sweep (gs2pc.parallel.sweep.render_sweep_sharded).
+
+    Cameras go to the devices in contiguous blocks whose sizes differ by at
+    most one (no padded cameras); each device sweeps its block with the
+    scene copied to it (no copy where it already lies), and the blocks'
+    accumulators merge in order on ``devices[0]``: total summed, surface
+    distance min, counters summed, (max, colour) from the first block that
+    reaches the max, so the single sweep's first-camera-wins tie-break
+    holds.  The devices are walked in turn."""
+    acc = init_accumulators(scene.means.shape[0], device=devices[0])
+    for dev, (lo, hi) in zip(devices, split_evenly(cameras.num_cameras, len(devices))):
+        if hi > lo:
+            part = render_sweep(scene.to(dev), cameras.sub(lo, hi, dev), cfg,
+                                calc_surface_distance)
+            acc = merge_accumulators(acc, part.to(devices[0]))
     return acc

@@ -10,13 +10,14 @@ import numpy as np
 import pytest
 import torch
 
-from gs2pc.utils.config import GaussPointCloudSettings, RenderConfig
 from gs2pc_torch import pipeline
 from gs2pc_torch.camera import build_camera_batch
 from gs2pc_torch.models.gaussians import Gaussians
 from gs2pc_torch.ops import blend_kernel as B
 from gs2pc_torch.ops import rasterize as R
 from gs2pc_torch.ops.projection import preprocess
+from gs2pc_torch.utils import capture
+from gs2pc_torch.utils.config import GaussPointCloudSettings, RenderConfig
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -90,15 +91,54 @@ def test_blend_kernel_matches_twin(cuda, compact, surface_compact):
     before = B.blend_tiles.launches
     k = B.blend_tiles(*args, **kw)
     assert B.blend_tiles.launches == before + 1
-    t = B.blend_tiles_torch(*args, **kw)
+    _assert_kernel_matches_twin(k, B.blend_tiles_torch(*args, **kw))
+
+
+def _assert_kernel_matches_twin(k, t):
     for name in ("image", "depth", "invdepth", "trans", "live"):
         torch.testing.assert_close(getattr(k, name), getattr(t, name), atol=TOL_IMAGE, rtol=0)
+    torch.testing.assert_close(k.chunks, t.chunks, atol=0, rtol=0)
     torch.testing.assert_close(k.contrib, t.contrib, atol=TOL_CONTRIB, rtol=0)
     torch.testing.assert_close(k.surf_dist, t.surf_dist, atol=TOL_SURF, rtol=0)
     hit = k.contrib > 0
     assert int(hit.sum()) > 100
     # The pixel can differ only on a near-tie of the pair's max contribution.
     assert float((k.best_pix != t.best_pix)[hit].float().mean()) < 1e-3
+
+
+@pytest.mark.parametrize("mode", ["early_stop_off", "init_trans", "ed_override_compact",
+                                  "ed_override_full", "black_background"])
+def test_blend_kernel_modes_match_twin(cuda, mode):
+    """K1's depth-slab modes against the twin: no stop with the final T,
+    a seeded starting-T map with ~10% of pixels already below 1e-4, a
+    surface-pass depth map under both surface_compact settings, bg = 0."""
+    g = _scene(3000, 5, cuda)
+    batch, cam = _camera(cuda)
+    npx = batch.width_pad * batch.height_pad
+    r = np.random.default_rng(7)
+    t0 = r.uniform(0.0, 1.0, npx).astype(np.float32)
+    t0[r.uniform(size=npx) < 0.1] = 1e-5
+    modes = {
+        "early_stop_off": dict(early_stop=False),
+        "init_trans": dict(init_trans=torch.tensor(t0, device=cuda)),
+        "ed_override_compact": dict(
+            init_trans=torch.tensor(t0, device=cuda),
+            ed_override=torch.tensor(r.uniform(2.0, 6.0, npx).astype(np.float32), device=cuda)),
+        "ed_override_full": dict(
+            ed_override=torch.tensor(r.uniform(2.0, 6.0, npx).astype(np.float32), device=cuda)),
+        "black_background": dict(bg=0.0),
+    }[mode]
+    cfg = R.TileConfig(width_pad=batch.width_pad, height_pad=batch.height_pad, run_cap=512,
+                       compact=True, surface_compact=mode != "ed_override_full")
+    prep = preprocess(g.xyz, g.covariance_factors(), g.opacities, g.keep_mask, cam,
+                      adaptive_radius=False)
+    args, kw, _ = R.blend_inputs(prep, g.colours, cam, cfg, calc_surface_distance=True,
+                                 **modes)
+    before = dict(B.blend_tiles.launches_by_mode)
+    k = B.blend_tiles(*args, **kw)
+    name = B.mode_of(kw.get("init_trans"), kw.get("ed_override"), kw.get("early_stop", True))
+    assert B.blend_tiles.launches_by_mode[name] == before.get(name, 0) + 1
+    _assert_kernel_matches_twin(k, B.blend_tiles_torch(*args, **kw))
 
 
 def test_render_tile_camera_on_card_matches_cpu(cuda):
@@ -118,12 +158,43 @@ def test_render_tile_camera_on_card_matches_cpu(cuda):
     torch.testing.assert_close(outs[1].n_dropped.cpu(), outs[0].n_dropped)
 
 
-def test_conversion_on_card(cuda, tmp_path):
-    import bench  # the benchmark's capture writer (numpy and PIL only)
+@pytest.mark.parametrize("axis", ["cams", "gauss", "both"])
+def test_sharded_sweeps_on_card_match_cpu(cuda, axis):
+    """The three sharded sweeps on [cuda:0] * 4 against the same sweeps on
+    CPU tensors (the twins); the depth-slab path launches K1 3 D times per
+    camera with the surface pass on."""
+    from gs2pc_torch.parallel.gauss_shard import render_sweep_2d, render_sweep_gauss_sharded
+    from gs2pc_torch.sweep import render_arrays, render_sweep_sharded
 
-    transforms, intr = bench.make_poses(3, 128, 96)
-    ply, tj, masks = bench.write_capture(
-        str(tmp_path), bench.make_scene_arrays(5000, seed=4), transforms, intr,
+    sweep = {"cams": render_sweep_sharded, "gauss": render_sweep_gauss_sharded,
+             "both": render_sweep_2d}[axis]
+    transforms, intr = capture.make_poses(3, 128, 96, focal_scale=0.6)
+    m = capture.vignette_mask(128, 96)
+    accs = []
+    for dev in ("cpu", cuda):
+        g = _scene(2000, 6, dev)
+        cams = build_camera_batch(transforms, intr, masks={n: m for n in transforms},
+                                  device=dev)
+        cfg = R.TileConfig(width_pad=cams.width_pad, height_pad=cams.height_pad,
+                           compact=True, surface_compact=True)
+        before = B.blend_tiles.launches
+        accs.append(sweep(render_arrays(g), cams, cfg, [torch.device(dev)] * 4))
+        if dev != "cpu" and axis == "gauss":
+            assert B.blend_tiles.launches - before == 3 * 4 * cams.num_cameras
+    a, b = accs
+    torch.testing.assert_close(b.max_contribution.cpu(), a.max_contribution, atol=TOL_CONTRIB,
+                               rtol=0)
+    torch.testing.assert_close(b.total_contribution.cpu(), a.total_contribution,
+                               atol=TOL_CONTRIB, rtol=0)
+    torch.testing.assert_close(b.min_surface_distance.cpu(), a.min_surface_distance,
+                               atol=TOL_SURF, rtol=0)
+    torch.testing.assert_close(b.n_dropped.cpu(), a.n_dropped)
+
+
+def test_conversion_on_card(cuda, tmp_path):
+    transforms, intr = capture.make_poses(3, 128, 96)
+    ply, tj, masks = capture.write_capture(
+        str(tmp_path), capture.make_scene_arrays(5000, seed=4), transforms, intr,
         with_masks=True,
     )
     settings = GaussPointCloudSettings(

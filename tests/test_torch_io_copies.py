@@ -1,0 +1,151 @@
+"""The port's copies of JAX-package host modules against their sources:
+the CLI parser and settings, the PLY / .splat / transforms.json readers,
+the g++-built PLY expand-writer, and the capture helpers of bench.py.  A
+drifted copy would be a silent fault, so each is pinned here."""
+
+import types
+
+import numpy as np
+import pytest
+
+import bench
+from gs2pc.io import ply as jax_ply
+from gs2pc.io import splat as jax_splat
+from gs2pc.io import transforms_json as jax_tj
+from gs2pc.utils import config as jax_config
+from gs2pc_torch.io import ply, splat, transforms_json
+from gs2pc_torch.io.ply import PointCloud, save_point_cloud_ply
+from gs2pc_torch.utils import capture, config
+from tests.fixture_scene import write_capture
+
+BASE = ["--input_path", "scene.ply", "--transform_path", "t.json"]
+ARGV = [
+    BASE,
+    BASE + ["--num_points", "1234", "--seed", "9", "--quiet", "--exact_num_points"],
+    BASE + ["--surface_distance_std", "1.5", "--visibility_threshold", "0.1",
+            "--bounding_box_min", "-1", "-2", "-3", "--bounding_box_max", "1", "2", "3"],
+    BASE + ["--colour_quality", "original", "--mask_path", "m", "--camera_skip_rate", "2"],
+    BASE + ["--no_compact_pairs", "--no_surface_compact", "--max_pairs_per_tile", "512"],
+    # Sharded sweeps.
+    BASE + ["--num_devices", "4", "--shard_axis", "gauss"],
+    BASE + ["--num_devices", "0", "--shard_axis", "both"],
+    # TPU-only flags (the port warns about them).
+    BASE + ["--pallas", "off", "--pair_budget", "100", "--tile_slots", "8",
+            "--tile_slots_small", "2", "--big_window_cap", "7", "--dispatch_cameras", "3",
+            "--sampler_device", "host"],
+    # Flags the port refuses.
+    BASE + ["--renderer_type", "python"],
+    BASE + ["--generate_mesh", "--poisson_depth", "8", "--clean_pointcloud"],
+    BASE + ["--save_sweep", "s.npz", "--load_sweep", "l.npz", "--sh_colour_eval",
+            "--auto_capacity", "--profile_dir", "p"],
+    ["--input_path", "s.splat", "--no_render_colours", "--no_calculate_normals",
+     "--min_opacity", "0.2", "--cull_gaussian_sizes", "0.1", "--max_sh_degree", "0"],
+]
+INVALID = [
+    BASE + ["--min_opacity", "2"],
+    ["--input_path", "x.ply"],  # colours without poses
+    BASE + ["--renderer_type", "dense", "--surface_distance_std", "1"],
+    BASE + ["--colour_quality", "huge"],
+]
+
+
+@pytest.mark.parametrize("argv", ARGV, ids=range(len(ARGV)))
+def test_parser_and_settings_match_jax(argv):
+    want = jax_config.parse_args(argv)
+    got = config.parse_args(argv)
+    assert vars(got) == vars(want)
+    assert config.settings_from_args(got) == jax_config.settings_from_args(want)
+
+
+@pytest.mark.parametrize("argv", INVALID, ids=range(len(INVALID)))
+def test_parser_refuses_like_jax(argv):
+    with pytest.raises(AttributeError) as want:
+        jax_config.parse_args(argv)
+    with pytest.raises(AttributeError) as got:
+        config.parse_args(argv)
+    assert str(got.value) == str(want.value)
+
+
+def test_config_file_matches_jax(tmp_path):
+    cfg = tmp_path / "run.cfg"
+    cfg.write_text("num_points = 777\nquiet: true\npallas = off\n# comment\nshard_axis=gauss\n")
+    argv = BASE + ["--config", str(cfg), "--seed", "3"]
+    assert vars(config.parse_args(argv)) == vars(jax_config.parse_args(argv))
+
+
+@pytest.fixture(scope="module")
+def fixture_files(tmp_path_factory):
+    root = tmp_path_factory.mktemp("fixture")
+    scene, _, _, paths = write_capture(str(root), n_cams=3, width=64, height=48)
+    splat_path = str(root / "scene.splat")
+    jax_splat.save_splat(splat_path, *(scene[k] for k in
+                                       ("xyz", "log_scales", "rots", "colours", "opacities")))
+    return paths, splat_path
+
+
+def test_readers_match_jax(fixture_files):
+    paths, splat_path = fixture_files
+    want, got = jax_ply.read_ply(paths["ply"]), ply.read_ply(paths["ply"])
+    assert list(got) == list(want)
+    for name in want:
+        assert got[name].properties == want[name].properties
+        np.testing.assert_array_equal(got[name].data, want[name].data)
+    for a, b in zip(splat.load_splat_gaussians(splat_path),
+                    jax_splat.load_splat_gaussians(splat_path)):
+        if b is None:
+            assert a is None
+        else:
+            np.testing.assert_array_equal(a, b)
+    assert (transforms_json.load_transform_json_data(paths["transforms"], skip_rate=1)
+            == jax_tj.load_transform_json_data(paths["transforms"], skip_rate=1))
+
+
+def test_ascii_ply_reader_matches_jax(tmp_path):
+    path = tmp_path / "a.ply"
+    path.write_text("ply\nformat ascii 1.0\nelement vertex 3\nproperty float x\n"
+                    "property uchar red\nend_header\n0.5 1\n-2 200\n3.25 7\n")
+    want, got = jax_ply.read_ply(str(path)), ply.read_ply(str(path))
+    np.testing.assert_array_equal(got["vertex"].data, want["vertex"].data)
+
+
+@pytest.mark.parametrize("with_normals", [False, True])
+def test_native_writer_matches_jax_bytes(tmp_path, with_normals):
+    """The port's g++-built expand-writer and the JAX package's writer
+    produce the same bytes."""
+    r = np.random.default_rng(5)
+    counts = r.integers(0, 7, 40).astype(np.int64)
+    cloud = PointCloud(
+        points=r.normal(size=(int(counts.sum()), 3)).astype(np.float32),
+        counts=counts,
+        cols_u8=r.integers(0, 256, (40, 3)).astype(np.uint8),
+        gauss_normals=r.normal(size=(40, 3)).astype(np.float32) if with_normals else None,
+    )
+    ours, theirs = tmp_path / "ours.ply", tmp_path / "theirs.ply"
+    assert save_point_cloud_ply(cloud, str(ours), chunk_size=17) == "native_expand"
+    gid = cloud.gauss_ids()
+    jax_ply.save_point_cloud_ply(
+        types.SimpleNamespace(points=cloud.points, colours=cloud.cols_u8[gid],
+                              normals=cloud.normals),
+        str(theirs), quiet=True,
+    )
+    assert ours.read_bytes() == theirs.read_bytes()
+
+
+def test_capture_helpers_match_bench(tmp_path):
+    a, b = capture.make_scene_arrays(2000), bench.make_scene_arrays(2000, kind="capture")
+    for name in capture.SceneArrays._fields:
+        got, want = getattr(a, name), getattr(b, name)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    assert capture.make_poses(5, 64, 48) == bench.make_poses(5, 64, 48)
+    np.testing.assert_array_equal(capture.vignette_mask(64, 48), bench.vignette_mask(64, 48))
+    transforms, intr = capture.make_poses(2, 64, 48)
+    (tmp_path / "a").mkdir()
+    (tmp_path / "b").mkdir()
+    ours = capture.write_capture(str(tmp_path / "a"), a, transforms, intr, with_masks=True)
+    theirs = bench.write_capture(str(tmp_path / "b"), b, transforms, intr, with_masks=True)
+    for x, y in zip(ours[:2], theirs[:2]):
+        assert open(x, "rb").read() == open(y, "rb").read()
+    for name in transforms:
+        assert ((tmp_path / "a" / "masks" / f"{name}.png").read_bytes()
+                == (tmp_path / "b" / "masks" / f"{name}.png").read_bytes())

@@ -1,5 +1,6 @@
 """gs2pc_torch end to end against the JAX pipeline on the fixture capture,
-the port's independence from JAX, and its refusal to run without CUDA."""
+the port's independence from JAX and from the JAX package, and its refusal
+to run without CUDA."""
 
 import os
 import subprocess
@@ -152,19 +153,22 @@ def test_ply_matches_jax_writer_layout(conversions, tmp_path):
 
 
 def test_port_never_imports_jax(capture, tmp_path):
+    """A CPU conversion with the depth-slab sweep on two devices and the PLY
+    write loads no JAX, no bench harness and no module of gs2pc/."""
     script = textwrap.dedent(f"""
         import sys
         import gs2pc_torch.cli
-        from gs2pc.utils.config import GaussPointCloudSettings
         from gs2pc_torch.io.ply import save_point_cloud_ply
         from gs2pc_torch.pipeline import convert_3dgs_to_pc
+        from gs2pc_torch.utils.config import GaussPointCloudSettings
         s = GaussPointCloudSettings(num_points=5000, colour_resolution=None, quiet=True,
-                                    surface_distance_std=1.0)
+                                    surface_distance_std=1.0, shard_axis="gauss")
         res = convert_3dgs_to_pc({capture['ply']!r}, {capture['transforms']!r},
-                                 {capture['masks']!r}, s, device="cpu")
+                                 {capture['masks']!r}, s, device="cpu", num_devices=2)
         save_point_cloud_ply(res.cloud, {str(tmp_path / 'out.ply')!r})
         assert res.cloud.total > 0
-        bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "bench", "gs2pc"))
         assert not bad, bad
         print("NO_JAX_OK")
     """)
@@ -197,8 +201,7 @@ def test_cli_refuses_to_run_without_cuda(capture, tmp_path):
 @pytest.mark.parametrize("flag", [
     ["--renderer_type", "dense"], ["--generate_mesh"], ["--clean_pointcloud"],
     ["--save_sweep", "s.npz"], ["--load_sweep", "s.npz"], ["--sh_colour_eval"],
-    ["--auto_capacity"], ["--profile_dir", "p"], ["--num_devices", "2"],
-    ["--shard_axis", "gauss"],
+    ["--auto_capacity"], ["--profile_dir", "p"],
 ])
 def test_cli_refuses_unported_flags(flag):
     from gs2pc_torch import cli
@@ -207,9 +210,22 @@ def test_cli_refuses_unported_flags(flag):
         cli.main(["--input_path", "x.ply", "--transform_path", "t.json", *flag])
 
 
-def test_cli_warns_on_tpu_only_flags(capsys):
-    from gs2pc.utils.config import parse_args
+def test_cli_takes_sharded_sweeps_then_needs_cuda(capsys):
+    """--num_devices / --shard_axis pass the flag checks; without CUDA the
+    CLI still exits non-zero before reading anything."""
     from gs2pc_torch import cli
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    for axis in ("cams", "gauss", "both"):
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            cli.main(["--input_path", "x.ply", "--transform_path", "t.json",
+                      "--num_devices", "4", "--shard_axis", axis])
+
+
+def test_cli_warns_on_tpu_only_flags(capsys):
+    from gs2pc_torch import cli
+    from gs2pc_torch.utils.config import parse_args
 
     cli.check_flags(parse_args(["--input_path", "x.ply", "--transform_path", "t.json",
                                 "--pallas", "on", "--pair_budget", "100"]))
