@@ -31,10 +31,23 @@ Phases (each prints one line or more; any failure exits non-zero):
                and 2-D sweeps on [cuda:0] * 4 through pipeline.run_render_sweep
                (the --shard_axis gauss|both dispatch) and the camera sweep on
                [cuda:0] * 2 against the single-device sweep
+ 10. probes    the tools' probe path: gs2pc_torch.tools.cuda_probe (K3, nine
+               ops) on the TPU tool's ones and a seeded uniform(0.5, 1.5)
+               block, cuda_probe2 (K4, levels 0-6) on try_level's inputs and
+               a seeded table; each held to its twin (bit for bit for roll,
+               min and scan, 1e-5 relative elsewhere) and timed
+ 11. oracle    validate_psnr's functions on the capture scene (200k Gaussians,
+               one 1280x720 camera, its mask): the tile renderer at the
+               production config against render_dense(rect_cull=True), PSNR
+               gated at 40 dB; the exact config (run cap above the longest
+               run, compact off) printed beside it
+ 12. dense CLI gs2pc_torch.cli.main --renderer_type dense --profile_dir on a
+               20k-Gaussian capture (4 cameras at 256x192, masks): points,
+               writer, the trace and its phases, colours against the tile CLI
 The line before the last is the kernels' JSON record (max_abs_err at the
-shape of phases 7-8, launches from the e2e run for the main mode and from
-the depth-slab sweep of phase 9 for the others), the last line the device
-record.
+shape of phases 7-8 and 10, launches from the e2e run for the main mode,
+from the depth-slab sweep of phase 9 for the others and from the probe
+tools' run of phase 10 for K3 / K4), the last line the device record.
 """
 
 from __future__ import annotations
@@ -83,6 +96,27 @@ FP32_FLOPS_PER_S = 67e12
 K1_BLEND_FLOPS = 30
 K1_SURF_FLOPS = 3
 TPX = 256
+
+# K3 / K4 vs their twins: the sums run in another order in K3 (warp
+# shuffles) than in its twin; K4 and its twin make the same operations, so
+# only expf / logf against torch's exp / log could part them.
+PROBE_RTOL = 1e-5
+# The least float operations K4's level 6 needs per (pixel, lane) of a chunk
+# it enters, each instruction one operation at the fp32 rate, counted from
+# tools/pallas_probe2.py:60-93: dx 1, power 2, exp 2 (the ex2 special
+# function and its log2(e) scale), opacity product and 0.99 min 2, the two
+# ok compares and the select 3, 1 - a 1, the exclusive product 1 (one
+# multiply per lane; the kernel's log-step scan makes 7), t_before and w 2,
+# the stop trigger 3, the colour and depth sums 2, log 2 (lg2 and its
+# scale) and its sum 1, the max over pixels and the argmax compare 2.
+K4_FLOPS = 24
+# The oracle phase (tools/validate_psnr.py:88-89 names 40 dB "visually
+# lossless"; DESIGN §2 expects the exact config within 2e-4 of the oracle).
+N_ORACLE_GAUSSIANS = 200_000
+PSNR_FLOOR_DB = 40.0
+N_DENSE_CLI_GAUSSIANS = 20_000
+N_DENSE_CLI_CAMERAS = 4
+DENSE_CLI_WIDTH, DENSE_CLI_HEIGHT = 256, 192
 
 # K1's modes as they appear in the kernels record: blend_kernel.mode_of name.
 K1_MODES = ("early_stop=False", "init_trans", "ed_override")
@@ -660,6 +694,199 @@ def phase_sharded(device, arrays):
     return launches
 
 
+def k3_bound():
+    """(bound_ms, bound_by) of one K3 call: the (256, 128) float32 block read
+    once and written once; its at most 256 x 128 adds are negligible."""
+    from gs2pc_torch.ops.probe_kernels import RS, TPX
+
+    return 1e3 * 2 * 4 * TPX * RS / HBM_BYTES_PER_S, "bytes"
+
+
+def k4_bound(inputs, res):
+    """(bound_ms, bound_by) of one K4 call at level 6, from this call's
+    data: the chunks the tiles entered are the 128-column windows of m the
+    kernel wrote.  Bytes: starts / counts / dims, the mask, table rows 0 and
+    5 of the entered chunks, and every output (rgb, ed, einv, m, apix) once.
+    Operations: K4_FLOPS per (pixel, lane) of an entered chunk."""
+    import torch
+
+    from gs2pc_torch.ops.probe_kernels import RS, TPX
+
+    starts, counts, dims, table, mask = inputs
+    chunks = int((~torch.isnan(res.m)).sum()) // RS
+    n_out = sum(getattr(res, n).numel() for n in ("rgb", "ed", "einv", "m", "apix"))
+    n_bytes = 4 * (starts.numel() + counts.numel() + dims.numel()) + mask.numel() \
+        + 2 * 4 * RS * chunks + 4 * n_out
+    flops = K4_FLOPS * TPX * RS * chunks
+    t_bytes, t_flops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"
+
+
+def phase_probes(device):
+    """The tools' probe path (cuda_probe, cuda_probe2, as a user runs them),
+    its launches counted; then every op and level held to its twin with the
+    stated bounds and timed against it."""
+    import torch
+
+    from gs2pc_torch.ops import probe_kernels as PK
+    from gs2pc_torch.tools import cuda_probe, cuda_probe2
+
+    dev = str(device)
+    PK.probe_op.launches = 0
+    PK.probe_blend.launches = 0
+    runs = [cuda_probe.main(["--device", dev, "--input", kind]) for kind in ("ones", "uniform")]
+    runs += [cuda_probe2.main(["--device", dev, "--input", kind]) for kind in ("ones", "seeded")]
+    launches = {"probe_op": PK.probe_op.launches, "probe_blend": PK.probe_blend.launches}
+    failed = [case for r in runs for case, rec in r.items() if not rec["ok"]]
+    if failed:
+        fail(f"probe cases failed: {failed}")
+    want = {"probe_op": 2 * len(PK.PROBE_OPS), "probe_blend": 2 * len(PK.LEVELS)}
+    if launches != want:
+        fail(f"probe launches {launches}, expected {want}")
+
+    err3, err4 = 0.0, 0.0
+    ms3, plain3 = {}, {}
+    for kind in ("ones", "uniform"):
+        x = cuda_probe.make_input(kind, device, seed=0)
+        for _, op in PK.PROBE_OPS:
+            got, want_t = PK.probe_op(op, x), PK.probe_op_torch(op, x)
+            torch.cuda.synchronize()
+            d = float((got - want_t).abs().max())
+            rel = cuda_probe.rel_err(got, want_t)
+            if op in PK.EXACT_OPS and d != 0.0 or rel > PROBE_RTOL:
+                fail(f"K3 {op} ({kind}) differs from its twin: abs {d}, relative {rel}")
+            err3 = max(err3, d)
+            if kind == "uniform":
+                ms3[op] = cuda_ms(lambda: PK.probe_op(op, x), 50)
+                plain3[op] = cuda_ms(lambda: PK.probe_op_torch(op, x), 20)
+    for kind in ("ones", "seeded"):
+        inputs = cuda_probe2.make_inputs(kind, device, seed=0)
+        for level in PK.LEVELS:
+            got, want_t = PK.probe_blend(level, *inputs), PK.probe_blend_torch(level, *inputs)
+            torch.cuda.synchronize()
+            rel = cuda_probe2.compare(level, got, want_t)
+            if rel > PROBE_RTOL:
+                fail(f"K4 level {level} ({kind}) differs from its twin by {rel} (relative)")
+            err4 = max(err4, max(float((getattr(got, n) - getattr(want_t, n)).abs().max())
+                                 for n in ("rgb", "ed", "einv")))
+    inputs = cuda_probe2.make_inputs("seeded", device, seed=0)
+    res = PK.probe_blend(6, *inputs)
+    k4 = dict(ms=cuda_ms(lambda: PK.probe_blend(6, *inputs), 50),
+              plain_ms=cuda_ms(lambda: PK.probe_blend_torch(6, *inputs), 5),
+              bound=k4_bound(inputs, res), max_abs_err=err4)
+    k3 = dict(ms=sum(ms3.values()) / len(ms3), plain_ms=sum(plain3.values()) / len(plain3),
+              bound=k3_bound(), max_abs_err=err3)
+    print("probes: " + ", ".join(f"{op} {ms3[op]:.4f} ms (twin {plain3[op]:.4f})" for op in ms3)
+          + f"; K3 max |err| {err3:.3g} (exact ops 0, others <= {PROBE_RTOL:g} relative), "
+          f"bound {k3['bound'][0]:.2e} ms; K4 level 6 seeded {k4['ms']:.4f} ms (twin "
+          f"{k4['plain_ms']:.3f} ms), bound {k4['bound'][0]:.2e} ms ({k4['bound'][1]}), max "
+          f"|err| {err4:.3g} (<= {PROBE_RTOL:g} relative); launches on the tools' path "
+          f"{launches}", flush=True)
+    return launches, k3, k4
+
+
+def phase_oracle(device):
+    """validate_psnr's functions at the oracle scale: the production tile
+    render against the rect-culled dense oracle (gated), and the exact
+    config against the same oracle image (printed)."""
+    import torch
+
+    from gs2pc_torch.ops import blend_kernel as B
+    from gs2pc_torch.ops import rasterize as R
+    from gs2pc_torch.ops.projection import preprocess
+    from gs2pc_torch.tools import validate_psnr as V
+
+    V.set_precision()
+    scene = V.scene_arrays(V.capture_scene(N_ORACLE_GAUSSIANS, 0, device))
+    cams = V.capture_cameras(1, E2E_WIDTH, E2E_HEIGHT, device, masks=True)
+    cam = cams.at(0)
+    cfg = V.tile_config(cams.width_pad, cams.height_pad, production=True)
+    B.blend_tiles.launches = 0
+    out_t = R.render_tile_camera(*scene, cam, cfg, calc_surface_distance=True)
+    out_d, dense_s = V.oracle(scene, cam, cfg.width_pad, cfg.height_pad, rect_cull=True)
+    rec = V.compare(out_t, out_d, cam)
+    launched = B.blend_tiles.launches
+    if launched != 1:
+        fail(f"the oracle phase's tile render launched K1 {launched} times, expected 1")
+
+    # The oracle's work: every (pixel, Gaussian) pair of the chunks up to the
+    # last valid Gaussian, in blocks of 65,536 pixels and chunks of 256.
+    n_valid = int(preprocess(*scene[:3], scene.alive, cam).valid.sum())
+    npx = cfg.width_pad * cfg.height_pad
+    blk = min(1 << 16, npx)
+    evals = -(-npx // blk) * blk * -(-n_valid // 256) * 256
+    prep = preprocess(*scene[:3], scene.alive, cam, adaptive_radius=False)
+    keys, _ = R.sort_pairs(*R.duplicate_with_keys(prep, cfg, circle_cull=False))
+    longest = int(R.tile_ranges(keys, cfg.num_tiles)[1].max())
+    del keys, prep
+    exact_cfg = V.tile_config(cams.width_pad, cams.height_pad, production=False,
+                              run_cap=longest + 1)
+    exact = V.compare(R.render_tile_camera(*scene, cam, exact_cfg, calc_surface_distance=False),
+                      out_d, cam)
+    torch.cuda.synchronize()
+    print(f"oracle: {N_ORACLE_GAUSSIANS} Gaussians, one {E2E_WIDTH}x{E2E_HEIGHT} camera, "
+          f"mask: production tile render vs render_dense(rect_cull=True): PSNR "
+          f"{rec['psnr_db']:.4f} dB (gate >= {PSNR_FLOOR_DB:g}), max |d image| "
+          f"{rec['max_image_delta']:.3g}, max |d contrib| {rec['max_contrib_delta']:.3g}; "
+          f"dense wall {dense_s:.3f}s ({n_valid} valid Gaussians, {evals:.4g} pair "
+          f"evaluations, {evals / dense_s:.4g}/s); exact config (run cap {longest + 1}, compact off): "
+          f"PSNR {exact['psnr_db']:.4f} dB, max |d image| {exact['max_image_delta']:.3g} "
+          f"(not gated; DESIGN §2 expects <= 2e-4)", flush=True)
+    if not rec["psnr_db"] >= PSNR_FLOOR_DB:
+        fail(f"oracle PSNR {rec['psnr_db']} dB < {PSNR_FLOOR_DB} dB")
+    return dict(rec, dense_s=dense_s, n_valid=n_valid, exact=exact)
+
+
+def phase_dense_cli(device, work):
+    """The CLI with --renderer_type dense --profile_dir against the tile CLI
+    on the same capture."""
+    import numpy as np
+
+    from gs2pc_torch import cli
+    from gs2pc_torch.ops import blend_kernel as B
+    from gs2pc_torch.utils import capture
+
+    arrays = capture.make_scene_arrays(N_DENSE_CLI_GAUSSIANS, seed=5)
+    transforms, intr = capture.make_poses(N_DENSE_CLI_CAMERAS, DENSE_CLI_WIDTH, DENSE_CLI_HEIGHT)
+    ply, tj, mask_dir = capture.write_capture(work, arrays, transforms, intr, with_masks=True)
+    prof = os.path.join(work, "profile")
+
+    def argv(out):
+        return ["--input_path", ply, "--transform_path", tj, "--mask_path", mask_dir,
+                "--output_path", out, "--num_points", "200000", "--seed", "0", "--quiet"]
+
+    B.blend_tiles.launches = 0
+    t0 = time.perf_counter()
+    dense = cli.main(argv(os.path.join(work, "dense.ply"))
+                     + ["--renderer_type", "dense", "--profile_dir", prof])
+    wall = time.perf_counter() - t0
+    if B.blend_tiles.launches != 0:
+        fail(f"the dense CLI launched K1 {B.blend_tiles.launches} times")
+    n_dense = check_cloud(dense, os.path.join(work, "dense.ply"), "dense CLI")
+    trace = os.path.join(prof, cli.TRACE_NAME)
+    if not os.path.exists(trace):
+        fail(f"--profile_dir wrote no {cli.TRACE_NAME}")
+    with open(trace) as fh:
+        names = {e.get("name") for e in json.load(fh)["traceEvents"]}
+    phases = ("load_gaussians", "render_sweep", "cull_chain", "point_sampling")
+    missing = [p for p in phases if p not in names]
+    if missing:
+        fail(f"the trace names no {missing}")
+    cuda_events = sum(1 for n in names if n and ("kernel" in n.lower() or "cuda" in n.lower()))
+    tile = cli.main(argv(os.path.join(work, "tile.ply")))
+    both = (dense.cloud.counts > 0) & (tile.cloud.counts > 0)
+    near = np.abs(dense.cloud.cols_u8.astype(int) - tile.cloud.cols_u8.astype(int)).max(axis=1) <= 2
+    share = float(near[both].mean()) if both.any() else 0.0
+    print(f"dense CLI: {N_DENSE_CLI_GAUSSIANS} Gaussians, {N_DENSE_CLI_CAMERAS} cameras at "
+          f"{DENSE_CLI_WIDTH}x{DENSE_CLI_HEIGHT}, masks: {n_dense} points (quota sum "
+          f"{int(dense.cloud.counts.sum())}) in {wall:.2f}s with the trace, writer "
+          f"{dense.writer}; trace {os.path.getsize(trace)} bytes names {list(phases)} and "
+          f"{cuda_events} kernel/CUDA event names; u8 colour within 2 of the tile CLI on "
+          f"{share:.6f} of {int(both.sum())} Gaussians both sample; points tile "
+          f"{tile.cloud.total}", flush=True)
+    return share
+
+
 def main() -> int:
     import torch
 
@@ -690,6 +917,7 @@ def main() -> int:
     print(f"build: PLY writer {time.perf_counter() - t0:.1f}s -> "
           f"{cuda_build.PLYIO_INFO['path']}", flush=True)
 
+    probe_launches, k3, k4 = phase_probes(device)
     phase_k2(device)
     phase_k1(device)
     work = os.path.join(REPO, "build", "chip_smoke")
@@ -702,6 +930,15 @@ def main() -> int:
     ms, bounds, k1_err = phase_timing(device, arrays)
     slab = phase_slab(device, arrays)
     launches.update(phase_sharded(device, arrays))
+    del arrays
+    phase_oracle(device)
+    work = os.path.join(REPO, "build", "chip_smoke_dense")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        phase_dense_cli(device, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     def entry(name, source, replaces, n, err, t, plain, bound):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -717,6 +954,12 @@ def main() -> int:
         entry("duplicate_with_keys", "gs2pc_torch/csrc/pairs.cu", "gs2pc/ops/rasterize.py:250",
               launches["duplicate_with_keys"], 0.0, ms["duplicate_with_keys"],
               ms["duplicate_with_keys_torch"], bounds["duplicate_with_keys"]),
+        entry("probe_op", "gs2pc_torch/csrc/probes.cu", "tools/pallas_probe.py:17",
+              probe_launches["probe_op"], k3["max_abs_err"], k3["ms"], k3["plain_ms"],
+              k3["bound"]),
+        entry("probe_blend", "gs2pc_torch/csrc/probes.cu", "tools/pallas_probe2.py:158",
+              probe_launches["probe_blend"], k4["max_abs_err"], k4["ms"], k4["plain_ms"],
+              k4["bound"]),
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,12 +2,16 @@
 port's copy of its parser, gs2pc_torch.utils.config), run on CUDA devices:
 ``cuda:0`` for everything, and ``cuda:0 .. cuda:N-1`` for the camera sweep
 with ``--num_devices N`` (0, the default, means every card) on the axis
-``--shard_axis cams|gauss|both`` names."""
+``--shard_axis cams|gauss|both`` names.  ``--profile_dir DIR`` writes a
+torch.profiler Chrome trace of the conversion (CPU and CUDA activities,
+the pipeline phases as named ranges) to DIR/TRACE_NAME."""
 
 from __future__ import annotations
 
+import contextlib
+import os
 import sys
-from typing import Optional, Sequence
+from typing import Iterator, Optional, Sequence
 
 import torch
 
@@ -35,13 +39,32 @@ def check_flags(args) -> None:
     for name in TPU_ONLY_FLAGS:
         if getattr(args, name) != parser.get_default(name):
             log.warn(f"--{name} tunes the TPU build only; it does nothing in gs2pc_torch")
-    refused = (
-        (args.clean_pointcloud, "--clean_pointcloud", 4),
-        (args.profile_dir is not None, "--profile_dir", 8),
-    )
-    for given, flag, item in refused:
-        if given:
-            raise_not_ported(flag, item)
+    if args.clean_pointcloud:
+        raise_not_ported("--clean_pointcloud", 4)
+
+
+TRACE_NAME = "gs2pc_torch_trace.json"
+
+
+@contextlib.contextmanager
+def profiling(profile_dir: Optional[str]) -> Iterator[None]:
+    """Trace the block with torch.profiler (CPU activities, and CUDA ones
+    where there is a card) and write it as a Chrome trace into
+    ``profile_dir``; nothing when it is None."""
+    if profile_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(profile_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    path = os.path.join(profile_dir, TRACE_NAME)
+    prof.export_chrome_trace(path)
+    log.info(f"Profiler trace written to {path}")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Conversion:
@@ -53,10 +76,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Conversion:
     if not torch.cuda.is_available():
         sys.exit("gs2pc_torch: no CUDA device is available; the port runs on NVIDIA GPUs "
                  "(use python -m gs2pc on other machines)")
-    result = convert_3dgs_to_pc(
-        args.input_path, args.transform_path, args.mask_path, settings,
-        device=torch.device("cuda", 0), num_devices=args.num_devices,
-    )
+    with profiling(args.profile_dir):
+        result = convert_3dgs_to_pc(
+            args.input_path, args.transform_path, args.mask_path, settings,
+            device=torch.device("cuda", 0), num_devices=args.num_devices,
+        )
     log.info("Saving Final Point Cloud")
     with log.phase("ply_write"):
         writer = save_point_cloud_ply(result.cloud, args.output_path, chunk_size=10**6)

@@ -216,6 +216,7 @@ def render_tile_camera(
     want_trans: bool = False,
     want_best_pix: bool = False,
     surface_ed_override: Optional[torch.Tensor] = None,
+    blend=None,
 ) -> RenderOutput:
     """Render one ``camera.Camera`` (its own mask applies); returns the image
     and the per-Gaussian accumulator inputs, as
@@ -226,7 +227,9 @@ def render_tile_camera(
     ``surface_ed_override`` (Hp * Wp,) is the depth the surface pass
     measures against, ``want_trans`` / ``want_best_pix`` fill
     ``RenderOutput.trans`` / ``best_pix``; the background is white, or 0
-    with ``white_bkgd=False``."""
+    with ``white_bkgd=False``.  ``blend`` replaces K1's wrapper
+    ``blend_tiles`` (None), as the tools that time or ablate its twin
+    ``blend_kernel.blend_tiles_torch`` on the card do."""
     prep = preprocess(
         means, cov_factors, opacities, alive, camera,
         adaptive_radius=not calc_surface_distance,
@@ -236,7 +239,7 @@ def render_tile_camera(
         init_trans=init_trans, ed_override=surface_ed_override, early_stop=early_stop,
         bg=BACKGROUND if white_bkgd else 0.0,
     )
-    res = blend_tiles(*args, **kwargs)
+    res = (blend or blend_tiles)(*args, **kwargs)
 
     # Counters [pairs blended, window-truncated (none: the expansion is
     # exact), run-cap-dropped pairs, run-cap drops on tiles whose pixels

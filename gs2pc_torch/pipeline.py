@@ -42,7 +42,6 @@ TRUNCATION_WARN_FRACTION = 0.005
 # the ROADMAP.md 'Still to port' item that ports it.  Each refuses to run
 # rather than being ignored.
 _UNSUPPORTED = (
-    (lambda s: s.renderer_type != "tile", "--renderer_type dense|python", 1),
     (lambda s: s.sh_colour_eval, "--sh_colour_eval", 2),
     (lambda s: s.generate_mesh, "--generate_mesh", 4),
     (lambda s: s.save_sweep is not None, "--save_sweep", 5),
@@ -205,6 +204,8 @@ def run_render_sweep(
             f"--shard_axis {settings.shard_axis} needs --num_devices > 1 "
             "(it would otherwise be silently ignored)"
         )
+    if settings.shard_axis != "cams" and settings.renderer_type != "tile":
+        raise ValueError(f"--shard_axis {settings.shard_axis} requires the tile renderer")
     cfg = tile_config(settings, cameras.width_pad, cameras.height_pad)
     scene = render_arrays(gaussians)
     csd = settings.surface_distance_std is not None
@@ -213,8 +214,10 @@ def run_render_sweep(
     if settings.shard_axis == "both":
         return render_sweep_2d(scene, cameras, cfg, devices, calc_surface_distance=csd)
     if len(devices) > 1:
-        return render_sweep_sharded(scene, cameras, cfg, devices, calc_surface_distance=csd)
-    return render_sweep(scene, cameras, cfg, calc_surface_distance=csd)
+        return render_sweep_sharded(scene, cameras, cfg, devices, calc_surface_distance=csd,
+                                    renderer=settings.renderer_type)
+    return render_sweep(scene, cameras, cfg, calc_surface_distance=csd,
+                        renderer=settings.renderer_type)
 
 
 def convert_3dgs_to_pc(

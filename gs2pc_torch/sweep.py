@@ -1,6 +1,7 @@
 """Camera sweeps + per-Gaussian accumulators (counterpart of
 gs2pc.parallel.sweep): the single-device sweep and the camera
-data-parallel sweep over a list of devices.
+data-parallel sweep over a list of devices, with the tile renderer or the
+dense oracle.
 
   max_contribution      running max of the per-image max alpha*T
   colours               rendered colour at the winning pixel, [0, 1]
@@ -16,6 +17,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from gs2pc_torch.ops.blend import FLOAT_MAX, RenderOutput
+from gs2pc_torch.ops.dense_render import render_dense
 from gs2pc_torch.ops.rasterize import TileConfig, render_tile_camera
 from gs2pc_torch.parallel.mesh import split_evenly
 
@@ -63,6 +65,12 @@ def init_accumulators(num_gaussians: int, *, device) -> SweepAccumulators:
     )
 
 
+def _add_counters(a: Optional[torch.Tensor], b: Optional[torch.Tensor]):
+    """Sum of two counter vectors; a renderer without counters (the dense
+    oracle, None) leaves the other as it is."""
+    return a if a is None or b is None else a + b
+
+
 def update_accumulators(acc: SweepAccumulators, out: RenderOutput) -> SweepAccumulators:
     """Strict ``>``: on equal contributions the earlier camera keeps its colour."""
     upd = out.contrib > acc.max_contribution
@@ -71,7 +79,7 @@ def update_accumulators(acc: SweepAccumulators, out: RenderOutput) -> SweepAccum
         colours=torch.where(upd[:, None], out.best_colour, acc.colours),
         total_contribution=acc.total_contribution + out.contrib,
         min_surface_distance=torch.minimum(acc.min_surface_distance, out.surf_dist),
-        n_dropped=acc.n_dropped + out.n_dropped,
+        n_dropped=_add_counters(acc.n_dropped, out.n_dropped),
     )
 
 
@@ -86,20 +94,36 @@ def merge_accumulators(a: SweepAccumulators, b: SweepAccumulators) -> SweepAccum
         colours=torch.where(upd[:, None], b.colours, a.colours),
         total_contribution=a.total_contribution + b.total_contribution,
         min_surface_distance=torch.minimum(a.min_surface_distance, b.min_surface_distance),
-        n_dropped=a.n_dropped + b.n_dropped,
+        n_dropped=_add_counters(a.n_dropped, b.n_dropped),
     )
 
 
+def render_camera(
+    scene: RenderArrays, camera, cfg: TileConfig, renderer: str = "tile",
+    calc_surface_distance: bool = True,
+) -> RenderOutput:
+    """One camera with ``renderer`` (gs2pc.parallel.sweep._render_one):
+    "tile", or "dense", the oracle, in chunks of ``cfg.run_chunk``
+    Gaussians with the camera's mask."""
+    if renderer == "dense":
+        return render_dense(
+            *scene, camera, cfg.width_pad, cfg.height_pad, chunk=cfg.run_chunk,
+            calc_surface_distance=calc_surface_distance, mask=camera.mask,
+        )
+    if renderer != "tile":
+        raise ValueError(f"unknown renderer {renderer!r} (tile or dense)")
+    return render_tile_camera(*scene, camera, cfg, calc_surface_distance=calc_surface_distance)
+
+
 def render_sweep(
-    scene: RenderArrays, cameras, cfg: TileConfig, calc_surface_distance: bool = True
+    scene: RenderArrays, cameras, cfg: TileConfig, calc_surface_distance: bool = True,
+    renderer: str = "tile",
 ) -> SweepAccumulators:
     """Render every camera in turn on the scene's device and fold it into
     the accumulators."""
     acc = init_accumulators(scene.means.shape[0], device=scene.means.device)
     for i in range(cameras.num_cameras):
-        out = render_tile_camera(
-            *scene, cameras.at(i), cfg, calc_surface_distance=calc_surface_distance,
-        )
+        out = render_camera(scene, cameras.at(i), cfg, renderer, calc_surface_distance)
         acc = update_accumulators(acc, out)
     return acc
 
@@ -110,6 +134,7 @@ def render_sweep_sharded(
     cfg: TileConfig,
     devices: Sequence[torch.device],
     calc_surface_distance: bool = True,
+    renderer: str = "tile",
 ) -> SweepAccumulators:
     """Camera data-parallel sweep (gs2pc.parallel.sweep.render_sweep_sharded).
 
@@ -124,6 +149,6 @@ def render_sweep_sharded(
     for dev, (lo, hi) in zip(devices, split_evenly(cameras.num_cameras, len(devices))):
         if hi > lo:
             part = render_sweep(scene.to(dev), cameras.sub(lo, hi, dev), cfg,
-                                calc_surface_distance)
+                                calc_surface_distance, renderer)
             acc = merge_accumulators(acc, part.to(devices[0]))
     return acc

@@ -210,3 +210,53 @@ def test_conversion_on_card(cuda, tmp_path):
     ref = pipeline.convert_3dgs_to_pc(ply, tj, masks, settings, device="cpu")
     assert result.sweep_diag == ref.sweep_diag
     assert abs(cloud.total - ref.cloud.total) <= 0.001 * ref.cloud.total
+
+
+@pytest.mark.parametrize("kind", ["ones", "uniform"])
+def test_probe_op_kernel_matches_twin(cuda, kind):
+    """K3, every op: launched once each, equal to the twin (bit for bit
+    where both make the same operations, else within the tool's bound)."""
+    from gs2pc_torch.ops import probe_kernels as PK
+    from gs2pc_torch.tools import cuda_probe
+
+    x = cuda_probe.make_input(kind, cuda, seed=3)
+    for _, op in PK.PROBE_OPS:
+        before = PK.probe_op.launches
+        got = PK.probe_op(op, x)
+        assert PK.probe_op.launches == before + 1
+        want = PK.probe_op_torch(op, x)
+        if op in PK.EXACT_OPS:
+            assert torch.equal(got, want), op
+        else:
+            assert cuda_probe.rel_err(got, want) <= cuda_probe.RTOL, op
+
+
+@pytest.mark.parametrize("kind", ["ones", "seeded"])
+def test_probe_blend_kernel_matches_twin(cuda, kind):
+    """K4, every level, through the tool's comparison (m / apix where the
+    level writes them)."""
+    from gs2pc_torch.ops import probe_kernels as PK
+    from gs2pc_torch.tools import cuda_probe2
+
+    inputs = cuda_probe2.make_inputs(kind, cuda, seed=5)
+    for level in PK.LEVELS:
+        before = PK.probe_blend.launches
+        got = PK.probe_blend(level, *inputs)
+        assert PK.probe_blend.launches == before + 1
+        want = PK.probe_blend_torch(level, *inputs)
+        assert cuda_probe2.compare(level, got, want) <= cuda_probe2.RTOL, level
+
+
+def test_dense_oracle_on_card_matches_cpu(cuda):
+    from gs2pc_torch.ops.dense_render import render_dense
+
+    outs = []
+    for dev in ("cpu", cuda):
+        g = _scene(1500, 8, dev)
+        batch, cam = _camera(dev, width=96, height=64)
+        outs.append(render_dense(g.xyz, g.covariance_factors(), g.opacities, g.colours,
+                                 g.keep_mask, cam, batch.width_pad, batch.height_pad,
+                                 chunk=128, pixel_chunk=2048, mask=cam.mask, rect_cull=True))
+    torch.testing.assert_close(outs[1].image.cpu(), outs[0].image, atol=TOL_IMAGE, rtol=0)
+    torch.testing.assert_close(outs[1].contrib.cpu(), outs[0].contrib, atol=TOL_CONTRIB, rtol=0)
+    torch.testing.assert_close(outs[1].surf_dist.cpu(), outs[0].surf_dist, atol=TOL_SURF, rtol=0)

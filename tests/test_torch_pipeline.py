@@ -182,6 +182,33 @@ def test_port_never_imports_jax(capture, tmp_path):
     assert "NO_JAX_OK" in proc.stdout
 
 
+def test_port_tools_never_import_jax():
+    """Every module of gs2pc_torch.tools imports, and cuda_probe /
+    cuda_probe2 run on the CPU, without JAX, the bench harness, gs2pc or the
+    JAX package's tools/."""
+    script = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import gs2pc_torch.tools as T
+        for m in pkgutil.iter_modules(T.__path__):
+            importlib.import_module(f"gs2pc_torch.tools.{m.name}")
+        from gs2pc_torch.tools import cuda_probe, cuda_probe2
+        assert all(r["ok"] for r in cuda_probe.main(["--device", "cpu"]).values())
+        assert all(r["ok"] for r in cuda_probe2.main(["--device", "cpu", "--input", "seeded"]).values())
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "bench", "gs2pc", "tools"))
+        assert not bad, bad
+        print("NO_JAX_OK")
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run(
+        [sys.executable, "-c", script], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NO_JAX_OK" in proc.stdout and proc.stdout.count(": OK") == 16
+
+
 def test_cli_refuses_to_run_without_cuda(capture, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
@@ -199,15 +226,48 @@ def test_cli_refuses_to_run_without_cuda(capture, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--renderer_type", "dense"], ["--generate_mesh"], ["--clean_pointcloud"],
-    ["--save_sweep", "s.npz"], ["--load_sweep", "s.npz"], ["--sh_colour_eval"],
-    ["--auto_capacity"], ["--profile_dir", "p"],
+    ["--generate_mesh"], ["--clean_pointcloud"], ["--save_sweep", "s.npz"],
+    ["--load_sweep", "s.npz"], ["--sh_colour_eval"], ["--auto_capacity"],
 ])
 def test_cli_refuses_unported_flags(flag):
     from gs2pc_torch import cli
 
     with pytest.raises(ValueError, match="not ported"):
         cli.main(["--input_path", "x.ply", "--transform_path", "t.json", *flag])
+
+
+@pytest.mark.parametrize("flag", [
+    ["--renderer_type", "dense"], ["--renderer_type", "python"], ["--profile_dir", "p"],
+])
+def test_cli_takes_dense_and_profile_dir_then_needs_cuda(flag):
+    """The dense oracle and --profile_dir pass the flag checks; without CUDA
+    the CLI still exits non-zero before reading anything."""
+    from gs2pc_torch import cli
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        cli.main(["--input_path", "x.ply", "--transform_path", "t.json", *flag])
+
+
+def test_profile_dir_trace_names_the_phases(capture, tmp_path):
+    """cli.profiling around a CPU conversion writes a Chrome trace whose
+    named ranges are the pipeline's phases."""
+    import json
+
+    from gs2pc_torch import cli
+    from gs2pc_torch.utils.config import GaussPointCloudSettings as Settings
+
+    out = tmp_path / "prof"
+    settings = Settings(num_points=3000, colour_resolution=None, quiet=True)
+    with cli.profiling(str(out)):
+        pipeline.convert_3dgs_to_pc(capture["ply"], capture["transforms"], capture["masks"],
+                                    settings, device="cpu")
+    assert os.listdir(out) == [cli.TRACE_NAME]
+    with open(out / cli.TRACE_NAME) as fh:
+        names = {e.get("name") for e in json.load(fh)["traceEvents"]}
+    for phase in ("load_gaussians", "render_sweep", "cull_chain", "point_sampling"):
+        assert phase in names
 
 
 def test_cli_takes_sharded_sweeps_then_needs_cuda(capsys):
