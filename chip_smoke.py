@@ -10,7 +10,8 @@ Phases (each prints one line or more; any failure exits non-zero):
   2. build     nvcc build + load of gs2pc_torch/csrc/*.cu, g++ build of the
                PLY writer
   3. K2        pair expansion vs twin: 200k Gaussians, one 1280x720 camera,
-               sorted keys and gids equal exactly (surface and AdR modes)
+               keys and gids equal exactly before and after the sort
+               (full-rect and circle-cull modes)
   4. K1        tile blend vs twin: 20k Gaussians at 256x192, vignette mask,
                surface pass, compact tables on and off
   5. K1 modes  the depth-slab modes vs twin at the same shape: no stop (with
@@ -22,7 +23,9 @@ Phases (each prints one line or more; any failure exits non-zero):
                one card, also --num_devices <cards> --shard_axis gauss
   7. timing    K1 and K2 on camera 0 of that scene, the shape the main path
                gives them: held against their twins with the bounds of
-               phases 3-4, then timed against them
+               phases 3-4 (K2 before and after the sort), then timed against
+               them, each launch alone and through its wrapper (K2: count,
+               scan + sync, write); the distribution of K1's chunks entered
   8. slab      K1's three depth-slab passes of slab 1 of 4 on camera 0 of
                that scene (the real prefix and the real combined depth map),
                held against the twin and timed
@@ -45,7 +48,9 @@ Phases (each prints one line or more; any failure exits non-zero):
                20k-Gaussian capture (4 cameras at 256x192, masks): points,
                writer, the trace and its phases, colours against the tile CLI
 The line before the last is the kernels' JSON record (max_abs_err at the
-shape of phases 7-8 and 10, launches from the e2e run for the main mode,
+shape of phases 7-8 and 10; ms the time through the wrapper, also given as
+wrapper_ms, and launch_ms the launch alone for K1 and K2's count + write,
+null for K3 / K4; launches from the e2e run for the main mode,
 from the depth-slab sweep of phase 9 for the others and from the probe
 tools' run of phase 10 for K3 / K4), the last line the device record.
 """
@@ -183,7 +188,11 @@ def k1_bound(args, kw, res):
     FP32_FLOPS_PER_S, counted from this call's data.  Pairs: per tile the
     chunks the blend entered x run_chunk, capped at the tile's count (the
     surface pass: the same, or the whole count without surface_compact),
-    times 256 pixels.  Bytes, each read or written once: the gids of the
+    times 256 pixels.  That counts every pixel of an entered chunk, done or
+    not, while the kernel skips a warp's pairs once its 32 pixels are done
+    and a pixel's blend arithmetic once it is done, so a kernel can come
+    close to this bound, or pass it, without running at the card's rate
+    (k1_share says so above 80%).  Bytes, each read or written once: the gids of the
     pairs read, the table rows of the Gaussians they name, starts / counts /
     chunks per tile, the mask and the init_trans / ed_override maps, the
     image (12 B), depth, inverse depth, final and live T per pixel, and 12 B
@@ -223,9 +232,28 @@ def k2_bound(prep, n_pairs: int):
     return 1e3 * n_bytes / HBM_BYTES_PER_S, "bytes"
 
 
-def phase_k2(device):
+def check_k2(prep, cfg, circle_cull: bool, label: str) -> int:
+    """Hold K2 to its twin before the sort (same pair at the same index) and
+    after it; fail on any difference, return the pair count."""
     import torch
 
+    from gs2pc_torch.ops import rasterize as R
+
+    uk, ug = R.duplicate_with_keys(prep, cfg, circle_cull=circle_cull)
+    tk, tg = R.duplicate_with_keys_torch(prep, cfg, circle_cull=circle_cull)
+    torch.cuda.synchronize()
+    if not (torch.equal(uk, tk) and torch.equal(ug, tg)):
+        fail(f"K2 disagrees with its twin before the sort ({label}): "
+             f"{uk.numel()} vs {tk.numel()} pairs")
+    sk, sg = R.sort_pairs(uk, ug)
+    stk, stg = R.sort_pairs(tk, tg)
+    torch.cuda.synchronize()
+    if not (torch.equal(sk, stk) and torch.equal(sg, stg)):
+        fail(f"K2 disagrees with its twin after the sort ({label})")
+    return uk.numel()
+
+
+def phase_k2(device):
     from gs2pc_torch.ops import rasterize as R
     from gs2pc_torch.ops.projection import preprocess
     from gs2pc_torch.utils import capture
@@ -238,15 +266,10 @@ def phase_k2(device):
     for surface in (True, False):
         prep = preprocess(g.xyz, g.covariance_factors(), g.opacities, g.keep_mask, cam,
                           adaptive_radius=not surface)
-        kk, kg = R.sort_pairs(*R.duplicate_with_keys(prep, cfg, circle_cull=not surface))
-        tk, tg = R.sort_pairs(*R.duplicate_with_keys_torch(prep, cfg, circle_cull=not surface))
-        torch.cuda.synchronize()
-        if not (torch.equal(kk, tk) and torch.equal(kg, tg)):
-            fail(f"K2 disagrees with its twin (surface={surface}): "
-                 f"{kk.numel()} vs {tk.numel()} pairs")
-        n_pairs.append(kk.numel())
-    print(f"K2 vs twin: 200k Gaussians, 1280x720: sorted keys and gids equal exactly "
-          f"({n_pairs[0]} pairs full-rect, {n_pairs[1]} pairs AdR-culled)", flush=True)
+        n_pairs.append(check_k2(prep, cfg, not surface, f"200k Gaussians, surface={surface}"))
+    print(f"K2 vs twin: 200k Gaussians, 1280x720: keys and gids equal exactly before and "
+          f"after the sort ({n_pairs[0]} pairs full-rect, {n_pairs[1]} pairs circle-culled)",
+          flush=True)
 
 
 def compare_k1(k, t, label: str) -> float:
@@ -444,13 +467,24 @@ def phase_e2e(device, work):
     return arrays, launches
 
 
+def k1_share(ms: float, bound) -> str:
+    """The share of its bound a K1 time reads, with k1_bound's caveat above 80%."""
+    share = bound[0] / ms
+    note = (" (over 80%: the bound counts all 256 pixels of every entered chunk, the "
+            "kernel skips done warps)" if share > 0.8 else "")
+    return f"{share:.1%} of the bound{note}"
+
+
 def phase_timing(device, arrays):
     """K1 and K2 on camera 0 of the e2e scene, the shape the main path gives
-    them: outputs held against the twins, then timed."""
+    them: outputs held against the twins, then timed, launch alone (the C
+    entry point replayed on the wrapper's arguments) and through the
+    wrapper."""
     import torch
 
     from gs2pc_torch.ops import blend_kernel as B
     from gs2pc_torch.ops import rasterize as R
+    from gs2pc_torch.tools.bench_kernels import K1_ENTRY, K2_ENTRIES, launch_ms
 
     g = scene_on_device(arrays, device)
     cams = camera_batch(1, E2E_WIDTH, E2E_HEIGHT, device, with_masks=True)
@@ -461,13 +495,9 @@ def phase_timing(device, arrays):
     n_pairs = int(args[1].numel())
     label = f"camera 0 of the e2e scene ({n_pairs} pairs)"
 
-    kk, kg = R.sort_pairs(*R.duplicate_with_keys(prep, cfg, False))
-    tk, tg = R.sort_pairs(*R.duplicate_with_keys_torch(prep, cfg, False))
-    torch.cuda.synchronize()
-    if not (torch.equal(kk, tk) and torch.equal(kg, tg)):
-        fail(f"K2 disagrees with its twin on {label}: {kk.numel()} vs {tk.numel()} pairs")
-    print(f"K2 vs twin, {label}: sorted keys and gids equal exactly", flush=True)
-    del kk, kg, tk, tg
+    check_k2(prep, cfg, False, label)
+    print(f"K2 vs twin, {label}: keys and gids equal exactly before and after the sort",
+          flush=True)
 
     k = B.blend_tiles(*args, **kw)
     t = B.blend_tiles_torch(*args, **kw)
@@ -475,19 +505,38 @@ def phase_timing(device, arrays):
     k1_err = compare_k1(k, t, label)
     bounds = {"blend_tiles": k1_bound(args, kw, k),
               "duplicate_with_keys": k2_bound(prep, n_pairs)}
+    ch = k.chunks.double()
+    print(f"K1 chunks entered per tile, {label}: mean {float(ch.mean()):.3f}, p99 "
+          f"{float(torch.quantile(ch, 0.99)):.1f}, max {int(ch.max())} (run_chunk "
+          f"{kw['run_chunk']}, {int((ch > 0).sum())} of {ch.numel()} tiles entered)", flush=True)
     del k, t
 
+    def k2():
+        return R.duplicate_with_keys(prep, cfg, False)
+
+    def k1():
+        return B.blend_tiles(*args, **kw)
+
+    k2_launch = launch_ms(k2, K2_ENTRIES, 10)
     ms = {
-        "duplicate_with_keys": cuda_ms(lambda: R.duplicate_with_keys(prep, cfg, False), 5),
-        "duplicate_with_keys_torch": cuda_ms(
-            lambda: R.duplicate_with_keys_torch(prep, cfg, False), 2),
-        "blend_tiles": cuda_ms(lambda: B.blend_tiles(*args, **kw), 5),
+        "duplicate_with_keys": cuda_ms(k2, 5),
+        "duplicate_with_keys_torch": cuda_ms(lambda: R.duplicate_with_keys_torch(prep, cfg, False),
+                                             2),
+        "blend_tiles_launch": launch_ms(k1, [K1_ENTRY], 10)[K1_ENTRY],
+        "blend_tiles": cuda_ms(k1, 5),
         "blend_tiles_torch": cuda_ms(lambda: B.blend_tiles_torch(*args, **kw), 1),
+        "k2_count": k2_launch[K2_ENTRIES[0]],
+        "k2_write": k2_launch[K2_ENTRIES[1]],
     }
-    print(f"timing, {label}: "
-          + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
-          + "; bounds " + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in bounds.items()),
-          flush=True)
+    ms["k2_scan_sync"] = ms["duplicate_with_keys"] - ms["k2_count"] - ms["k2_write"]
+    print(f"timing, {label}: K1 launch alone {ms['blend_tiles_launch']:.4f} ms, through the "
+          f"wrapper {ms['blend_tiles']:.4f} ms, twin {ms['blend_tiles_torch']:.1f} ms, bound "
+          f"{bounds['blend_tiles'][0]:.4f} ms ({bounds['blend_tiles'][1]}), "
+          f"{k1_share(ms['blend_tiles_launch'], bounds['blend_tiles'])}; K2 count "
+          f"{ms['k2_count']:.4f} ms, scan + sync {ms['k2_scan_sync']:.4f} ms, write "
+          f"{ms['k2_write']:.4f} ms, through the wrapper {ms['duplicate_with_keys']:.4f} ms, twin "
+          f"{ms['duplicate_with_keys_torch']:.3f} ms, bound "
+          f"{bounds['duplicate_with_keys'][0]:.4f} ms (bytes)", flush=True)
     return ms, bounds, k1_err
 
 
@@ -502,6 +551,7 @@ def phase_slab(device, arrays):
     from gs2pc_torch.ops import rasterize as R
     from gs2pc_torch.parallel.gauss_shard import render_sweep_gauss_sharded
     from gs2pc_torch.sweep import render_arrays
+    from gs2pc_torch.tools.bench_kernels import K1_ENTRY, launch_ms
 
     g = scene_on_device(arrays, device)
     cams = camera_batch(1, E2E_WIDTH, E2E_HEIGHT, device, with_masks=True)
@@ -529,11 +579,14 @@ def phase_slab(device, arrays):
         err = compare_k1(k, t, label)
         bound = k1_bound(args, kw, k)
         del k, t
-        ms = cuda_ms(lambda: B.blend_tiles(*args, **kw), 5)
+        ms = launch_ms(lambda: B.blend_tiles(*args, **kw), [K1_ENTRY], 10)[K1_ENTRY]
+        wrapped = cuda_ms(lambda: B.blend_tiles(*args, **kw), 5)
         plain = cuda_ms(lambda: B.blend_tiles_torch(*args, **kw), 1)
-        print(f"timing, {label}: blend_tiles {ms:.3f} ms, blend_tiles_torch {plain:.3f} ms, "
-              f"bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
-        out[mode] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound=bound)
+        print(f"timing, {label}: K1 launch alone {ms:.4f} ms, through the wrapper "
+              f"{wrapped:.4f} ms, twin {plain:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}), "
+              f"{k1_share(ms, bound)}", flush=True)
+        out[mode] = dict(max_abs_err=err, launch_ms=ms, wrapper_ms=wrapped, plain_ms=plain,
+                         bound=bound)
     return out
 
 
@@ -940,20 +993,25 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    def entry(name, source, replaces, n, err, t, plain, bound):
+    def entry(name, source, replaces, n, err, t, plain, bound, launch=None):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": n, "max_abs_err": err, "ms": t, "plain_ms": plain,
-                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+                "wrapper_ms": t, "launch_ms": launch}
 
     k1_src, k1_tpu = "gs2pc_torch/csrc/blend.cu", "gs2pc/ops/pallas_blend.py:808"
     record = {"kernels": [
         entry("blend_tiles", k1_src, k1_tpu, launches["blend_tiles"], k1_err,
-              ms["blend_tiles"], ms["blend_tiles_torch"], bounds["blend_tiles"]),
+              ms["blend_tiles"], ms["blend_tiles_torch"], bounds["blend_tiles"],
+              ms["blend_tiles_launch"]),
         *(entry(f"blend_tiles[{m}]", k1_src, k1_tpu, launches[m], slab[m]["max_abs_err"],
-                slab[m]["ms"], slab[m]["plain_ms"], slab[m]["bound"]) for m in K1_MODES),
+                slab[m]["wrapper_ms"], slab[m]["plain_ms"], slab[m]["bound"],
+                slab[m]["launch_ms"])
+          for m in K1_MODES),
         entry("duplicate_with_keys", "gs2pc_torch/csrc/pairs.cu", "gs2pc/ops/rasterize.py:250",
               launches["duplicate_with_keys"], 0.0, ms["duplicate_with_keys"],
-              ms["duplicate_with_keys_torch"], bounds["duplicate_with_keys"]),
+              ms["duplicate_with_keys_torch"], bounds["duplicate_with_keys"],
+              ms["k2_count"] + ms["k2_write"]),
         entry("probe_op", "gs2pc_torch/csrc/probes.cu", "tools/pallas_probe.py:17",
               probe_launches["probe_op"], k3["max_abs_err"], k3["ms"], k3["plain_ms"],
               k3["bound"]),

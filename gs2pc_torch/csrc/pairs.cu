@@ -3,27 +3,42 @@
 // Replaces: gs2pc/ops/rasterize.py::_build_pairs (:250-510), the JAX
 // package's static-budget expansion (waterfilled windows, a scatter +
 // cummax inverse of the prefix sum, packed sort keys).  On the GPU the
-// pair count is known exactly from an exclusive prefix sum of the
-// per-Gaussian counts, so there is no budget, no waterfill and no window.
+// pair count is known exactly from a prefix sum of the per-Gaussian
+// counts, so there is no budget, no waterfill and no window.
 //
 // Two launches per camera:
 //   count_pairs  one thread per Gaussian: the number of rect tiles it
 //                emits (the full rect, or in non-surface mode the tiles
 //                that pass the AdR circle-vs-tile cull);
-//   write_pairs  one thread per Gaussian: at offsets[g] (the exclusive
-//                cumsum of the counts) one int64 key
+//   write_pairs  at O(g) (the exclusive prefix sum of the counts, read from
+//                the inclusive one, ends) one int64 key
 //                (tile_id << 32) | float_bits(depth) and one int32 gid per
 //                emitted tile, rect row-major.
-// Both passes call the same tile_hit() test, with the float operations
-// pinned to round-to-nearest (no FMA contraction), so the two passes agree
-// and the output equals the PyTorch twin bit for bit.
+// Either way every pair lands at the same index: gid-major, rect row-major
+// within a Gaussian, which the PyTorch twin's unsorted order is too.
 //
-// Bound: device-memory writes of 12 bytes per pair (the reads are 32 bytes
-// per Gaussian); the work per thread is the Gaussian's rect area, so a few
-// screen-sized splats serialise in single threads.  This first version
-// accepts that imbalance: on capture-like scenes such splats are ~0.1% of
-// the scene and the sort after this kernel costs more.
+// What bounds write_pairs: device-memory writes of 12 bytes per pair (the
+// reads are ~24 bytes per Gaussian).  In full-rect mode (the main path's
+// surface mode) it is pair-parallel, so a screen-sized splat no longer
+// serialises its thousands of writes in one thread and every write is
+// coalesced: each block takes a span of K2_ITEMS items of the merge of the
+// Gaussians' start offsets with the pair indices (merge path, as a
+// load-balanced search), so it holds at most K2_ITEMS pairs and Gaussians
+// together however the pairs are spread.  Two warps find the span's ends
+// with a 32-way search over ends; the block stages its Gaussians' offsets,
+// rects and depth bits in shared memory; each thread maps its pairs to
+// (gid, k) by a binary search there and to (tx, ty) = rect_min + (k mod w,
+// k div w).  In circle-cull mode (off the main path) a thread walks one
+// Gaussian's rect, as before: both passes call the same tile_hit() test,
+// with the float operations pinned to round-to-nearest (no FMA
+// contraction), so they agree and the output equals the twin bit for bit.
 #include "common.cuh"
+
+// Measured at the main path's shape: 128 threads beat 256 and 512, 1,024
+// items beat 512 (PERF.md).
+#define K2_THREADS 128
+#define K2_ITEMS 1024  // Gaussians + pairs merged per block
+#define FULL_MASK 0xffffffffu
 
 __device__ __forceinline__ bool tile_hit(float px, float py, float r2, int tx, int ty) {
     const float fx = (float)(tx * TILE_EDGE);
@@ -33,6 +48,11 @@ __device__ __forceinline__ bool tile_hit(float px, float py, float r2, int tx, i
     const float ddx = __fsub_rn(cx, px);
     const float ddy = __fsub_rn(cy, py);
     return __fadd_rn(__fmul_rn(ddx, ddx), __fmul_rn(ddy, ddy)) <= r2;
+}
+
+// Exclusive prefix sum of the counts at g, from the inclusive one.
+__device__ __forceinline__ int64_t start_of(const int64_t* __restrict__ ends, int g) {
+    return g > 0 ? ends[g - 1] : 0;
 }
 
 __global__ void count_pairs_kernel(const float* __restrict__ xy,
@@ -60,29 +80,108 @@ __global__ void count_pairs_kernel(const float* __restrict__ xy,
     counts[g] = c;
 }
 
-__global__ void write_pairs_kernel(const float* __restrict__ xy,
-                                   const float* __restrict__ r_alpha_sq,
-                                   const int* __restrict__ rect_min,
-                                   const int* __restrict__ rect_max,
-                                   const uint8_t* __restrict__ valid,
-                                   const float* __restrict__ depth,
-                                   const int64_t* __restrict__ offsets, int P,
-                                   int circle_cull, int grid_w, int64_t* __restrict__ keys,
-                                   int* __restrict__ gids) {
+// Circle-cull mode: one thread per Gaussian walks its rect.
+__global__ void write_pairs_cull_kernel(const float* __restrict__ xy,
+                                        const float* __restrict__ r_alpha_sq,
+                                        const int* __restrict__ rect_min,
+                                        const int* __restrict__ rect_max,
+                                        const uint8_t* __restrict__ valid,
+                                        const float* __restrict__ depth,
+                                        const int64_t* __restrict__ ends, int P, int grid_w,
+                                        int64_t* __restrict__ keys, int* __restrict__ gids) {
     const int g = blockIdx.x * blockDim.x + threadIdx.x;
     if (g >= P || !valid[g]) return;
     const int x0 = rect_min[2 * g], y0 = rect_min[2 * g + 1];
     const int x1 = rect_max[2 * g], y1 = rect_max[2 * g + 1];
     const float px = xy[2 * g], py = xy[2 * g + 1], r2 = r_alpha_sq[g];
     const int64_t dbits = (int64_t)__float_as_uint(depth[g]);
-    int64_t o = offsets[g];
+    int64_t o = start_of(ends, g);
     for (int ty = y0; ty < y1; ++ty) {
         for (int tx = x0; tx < x1; ++tx) {
-            if (circle_cull && !tile_hit(px, py, r2, tx, ty)) continue;
+            if (!tile_hit(px, py, r2, tx, ty)) continue;
             keys[o] = ((int64_t)(ty * grid_w + tx) << 32) | dbits;
             gids[o] = g;
             ++o;
         }
+    }
+}
+
+// Merge path: Gaussian g stands at g + O(g) in the merge of the start
+// offsets with the pair indices (a start before the pair at its own index).
+// Returns the number of Gaussians before merged position d, the least a in
+// [0, P] with a == P or a + O(a) >= d; every lane of the calling warp takes
+// part and gets it.  Each round probes 32 points and keeps the gap between
+// the last probe below d and the first at or above it.
+__device__ int merge_split(const int64_t* __restrict__ ends, int P, int64_t d) {
+    const int lane = threadIdx.x & 31;
+    int lo = 0, hi = P;
+    while (lo < hi) {
+        const int step = (hi - lo + 31) / 32;
+        const int64_t idx = lo + (int64_t)lane * step;
+        const bool at_or_above = idx >= hi || idx + start_of(ends, (int)idx) >= d;
+        const unsigned ballot = __ballot_sync(FULL_MASK, at_or_above);
+        if (ballot == 0u) {
+            lo += 31 * step + 1;
+        } else {
+            const int f = __ffs(ballot) - 1;
+            if (f == 0) {
+                hi = lo;
+            } else {
+                hi = min(hi, lo + f * step);
+                lo += (f - 1) * step + 1;
+            }
+        }
+    }
+    return lo;
+}
+
+// Full-rect mode: pair-parallel over merge-path spans.
+__global__ void __launch_bounds__(K2_THREADS) write_pairs_rect_kernel(
+    const int* __restrict__ rect_min, const int* __restrict__ rect_max,
+    const float* __restrict__ depth, const int64_t* __restrict__ ends, int P, int64_t total,
+    int grid_w, int64_t* __restrict__ keys, int* __restrict__ gids) {
+    __shared__ int64_t s_start[K2_ITEMS + 1];
+    __shared__ int s_x0[K2_ITEMS + 1], s_y0[K2_ITEMS + 1], s_w[K2_ITEMS + 1];
+    __shared__ unsigned s_dbits[K2_ITEMS + 1];
+    __shared__ int s_split[2];
+    const int64_t d0 = (int64_t)blockIdx.x * K2_ITEMS;
+    const int64_t d1 = min(d0 + K2_ITEMS, (int64_t)P + total);
+    const int warp = threadIdx.x >> 5;
+    if (warp < 2) {
+        const int a = merge_split(ends, P, warp == 0 ? d0 : d1);
+        if ((threadIdx.x & 31) == 0) s_split[warp] = a;
+    }
+    __syncthreads();
+    const int a0 = s_split[0], a1 = s_split[1];
+    // The span's pairs belong to Gaussians a0 - 1 .. a1 - 1 (a0 - 1 may have
+    // started in an earlier span).
+    const int g_lo = max(a0 - 1, 0);
+    const int n_g = a1 - g_lo;
+    for (int i = threadIdx.x; i < n_g; i += K2_THREADS) {
+        const int g = g_lo + i;
+        const int x0 = rect_min[2 * g];
+        s_start[i] = start_of(ends, g);
+        s_x0[i] = x0;
+        s_y0[i] = rect_min[2 * g + 1];
+        s_w[i] = rect_max[2 * g] - x0;
+        s_dbits[i] = __float_as_uint(depth[g]);
+    }
+    __syncthreads();
+    const int64_t b1 = d1 - a1;
+    for (int64_t b = d0 - a0 + threadIdx.x; b < b1; b += K2_THREADS) {
+        // The last staged Gaussian starting at or before b: the one holding
+        // it (Gaussians with no pair share the next one's start).
+        int lo = 0, hi = n_g - 1;
+        while (lo < hi) {
+            const int mid = (lo + hi + 1) >> 1;
+            if (s_start[mid] <= b) lo = mid;
+            else hi = mid - 1;
+        }
+        const int k = (int)(b - s_start[lo]);
+        const int w = s_w[lo];
+        const int tx = s_x0[lo] + k % w, ty = s_y0[lo] + k / w;
+        keys[b] = ((int64_t)(ty * grid_w + tx) << 32) | (int64_t)s_dbits[lo];
+        gids[b] = g_lo + lo;
     }
 }
 
@@ -100,15 +199,21 @@ GS2PC_API int gs2pc_count_pairs(const void* xy, const void* r_alpha_sq, const vo
 
 GS2PC_API int gs2pc_write_pairs(const void* xy, const void* r_alpha_sq, const void* rect_min,
                                 const void* rect_max, const void* valid, const void* depth,
-                                const void* offsets, int P, int circle_cull, int grid_w,
-                                void* keys, void* gids, void* stream) {
-    if (P > 0) {
-        const int threads = 256;
-        write_pairs_kernel<<<(P + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-            (const float*)xy, (const float*)r_alpha_sq, (const int*)rect_min,
-            (const int*)rect_max, (const uint8_t*)valid, (const float*)depth,
-            (const int64_t*)offsets, P, circle_cull, grid_w, (int64_t*)keys,
-            (int*)gids);
+                                const void* ends, int P, long long total, int circle_cull,
+                                int grid_w, void* keys, void* gids, void* stream) {
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (P > 0 && total > 0) {
+        if (circle_cull) {
+            write_pairs_cull_kernel<<<(P + 255) / 256, 256, 0, st>>>(
+                (const float*)xy, (const float*)r_alpha_sq, (const int*)rect_min,
+                (const int*)rect_max, (const uint8_t*)valid, (const float*)depth,
+                (const int64_t*)ends, P, grid_w, (int64_t*)keys, (int*)gids);
+        } else {
+            const long long blocks = ((long long)P + total + K2_ITEMS - 1) / K2_ITEMS;
+            write_pairs_rect_kernel<<<(unsigned)blocks, K2_THREADS, 0, st>>>(
+                (const int*)rect_min, (const int*)rect_max, (const float*)depth,
+                (const int64_t*)ends, P, (int64_t)total, grid_w, (int64_t*)keys, (int*)gids);
+        }
     }
     return (int)cudaGetLastError();
 }

@@ -116,8 +116,11 @@ def blend_tiles(
     lib = load_library()
     dev = table.device
     P = table.shape[0]
-    # Locals keep every buffer alive until the launch is queued.
+    # Locals keep every buffer alive until the launch is queued.  The kernel
+    # copies table rows in 16-byte pieces, so the table must be 16-byte aligned.
     table, sorted_gid = table.contiguous(), sorted_gid.contiguous()
+    if table.data_ptr() % 16:
+        table = table.clone()
     starts, counts = starts.contiguous(), counts.contiguous()
     mask, init_trans, ed_override = (
         None if t is None else t.contiguous() for t in (mask, init_trans, ed_override)
@@ -128,23 +131,24 @@ def blend_tiles(
     trans = torch.empty_like(depth)
     live = torch.empty_like(depth)
     chunks = torch.empty(num_tiles, dtype=torch.int32, device=dev)
-    key = torch.zeros(P, dtype=torch.int64, device=dev)
-    surf = torch.full((P,), FLOAT_MAX, dtype=torch.float32, device=dev)
+    # Block i blends tile order[i]: the longest capped runs start first.
+    order = torch.argsort(counts, descending=True).to(torch.int32)
+    contrib = torch.empty(P, dtype=torch.float32, device=dev)
+    best_pix = torch.empty(P, dtype=torch.int64, device=dev)
+    surf = torch.empty(P, dtype=torch.float32, device=dev)
     rc = lib.gs2pc_blend_tiles(
         table.data_ptr(), sorted_gid.data_ptr() if sorted_gid.numel() else None,
-        starts.data_ptr(), counts.data_ptr(),
+        starts.data_ptr(), counts.data_ptr(), order.data_ptr(),
         *(None if t is None else t.data_ptr() for t in (mask, init_trans, ed_override)),
         int(early_stop), table.shape[1], num_tiles, width, height, grid_w, width_pad,
         run_chunk, float(bg), int(with_surface), int(surface_compact),
         image.data_ptr(), depth.data_ptr(), invdepth.data_ptr(), trans.data_ptr(),
-        live.data_ptr(), chunks.data_ptr(), key.data_ptr(), surf.data_ptr(), stream_ptr(table),
+        live.data_ptr(), chunks.data_ptr(), contrib.data_ptr(), best_pix.data_ptr(),
+        surf.data_ptr(), P, stream_ptr(table),
     )
     blend_tiles.launches += 1
     blend_tiles.launches_by_mode[mode_of(init_trans, ed_override, early_stop)] += 1
     check(rc, "gs2pc_blend_tiles")
-    hit = key > 0
-    contrib = torch.where(hit, (key >> 32).to(torch.int32).view(torch.float32), 0.0)
-    best_pix = torch.where(hit, 0xFFFFFFFF - (key & 0xFFFFFFFF), 0)
     return BlendResult(image, depth, invdepth, trans, live, chunks, contrib, best_pix, surf)
 
 

@@ -44,11 +44,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "gs2pc_count_pairs": (_I, [_P, _P, _P, _P, _P, _I, _I, _P, _P]),
-    "gs2pc_write_pairs": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P]),
+    "gs2pc_write_pairs": (
+        _I, [_P, _P, _P, _P, _P, _P, _P, _I, ctypes.c_longlong, _I, _I, _P, _P, _P],
+    ),
     "gs2pc_blend_tiles": (
         _I,
-        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
-         _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+         _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     ),
     "gs2pc_probe_op": (_I, [_I, _P, _P, _P, _P]),
     "gs2pc_probe_blend": (_I, [_I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P]),

@@ -81,9 +81,10 @@ def duplicate_with_keys(prep: Preprocessed, cfg: TileConfig, circle_cull: bool):
 
     key = (tile_id << 32) | float_bits(depth) as int64, tile_id = ty *
     grid_w + tx; pairs are written in gid order, rect row-major within a
-    Gaussian.  ``circle_cull`` drops rect tiles the AdR circle misses (the
-    count and write passes apply the same test).  CUDA kernels for CUDA
-    tensors, the twin for CPU tensors."""
+    Gaussian (the full-rect write kernel is pair-parallel and relies on
+    that order).  ``circle_cull`` drops rect tiles the AdR circle misses
+    (the count and write passes apply the same test).  CUDA kernels for
+    CUDA tensors, the twin for CPU tensors."""
     dev = prep.xy.device
     if dev.type == "cpu":
         return duplicate_with_keys_torch(prep, cfg, circle_cull)
@@ -108,13 +109,12 @@ def duplicate_with_keys(prep: Preprocessed, cfg: TileConfig, circle_cull: bool):
     duplicate_with_keys.launches += 1
     check(rc, "gs2pc_count_pairs")
     ends = torch.cumsum(counts, 0, dtype=torch.int64)
-    offsets = ends - counts
     total = int(ends[-1]) if P else 0
     keys = torch.empty(total, dtype=torch.int64, device=dev)
     gids = torch.empty(total, dtype=torch.int32, device=dev)
     rc = lib.gs2pc_write_pairs(
         xy.data_ptr(), r2.data_ptr(), rmin.data_ptr(), rmax.data_ptr(), valid.data_ptr(),
-        depth.data_ptr(), offsets.data_ptr(), P, int(circle_cull), cfg.grid_w,
+        depth.data_ptr(), ends.data_ptr(), P, total, int(circle_cull), cfg.grid_w,
         keys.data_ptr() if total else None, gids.data_ptr() if total else None, stream,
     )
     duplicate_with_keys.launches += 1

@@ -1,0 +1,283 @@
+"""Times K1 (every mode) and K2 at the main path's shape: camera 0 of the
+capture scene (3M Gaussians, 1280x720, its vignette mask, surface pass,
+compact tables, run cap 4096) and, for K1's depth-slab modes, slab 1 of 4
+of the same camera, with the inputs the depth-slab sweep gives it.
+
+Each kernel is timed two ways with CUDA events, the mean over ``--reps``
+after a warm-up: through its wrapper (allocations and the PyTorch work
+around the launch included), and the launch alone (the C entry point,
+replayed ``--reps`` times on the arguments the wrapper gives it; every
+entry point of K1 and K2 is idempotent on its outputs).  K2's scan + sync
+is the wrapper's time less its count and write launches.
+
+    python gs2pc_torch/tools/bench_kernels.py [--root DIR] [--e2e N [--profile]]
+        [--gaussians 3000000] [--reps 20] [--out FILE]
+
+``--root`` imports ``gs2pc_torch`` from another checkout (the tool runs as
+a file, so the same script times an older tree beside this one: run them
+in turns, A B B A, in one call on one card).  ``--e2e N`` also runs the
+production conversion of that scene (16 cameras, 10M points) N times
+through ``cli.main`` and records each wall and its phases; ``--profile``
+adds one run under torch.profiler (the card's busy time, its top kernels).
+A card is required.  Prints one JSON
+object as its last line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import sys
+import time
+from typing import Optional, Sequence
+from unittest import mock
+
+N_SLABS = 4
+K1_ENTRY = "gs2pc_blend_tiles"
+K2_ENTRIES = ("gs2pc_count_pairs", "gs2pc_write_pairs")
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn`` over ``reps`` calls after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+class _TimedLibrary:
+    """Stands in for the kernel library: each call of an entry point in
+    ``names`` runs once, then ``reps`` more times between two CUDA events
+    on the current stream; other entry points pass through."""
+
+    def __init__(self, lib, names, reps: int):
+        self._lib, self._names, self._reps = lib, set(names), reps
+        self.ms = collections.defaultdict(list)
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name not in self._names:
+            return fn
+
+        def timed(*args):
+            import torch
+
+            rc = fn(*args)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(self._reps):
+                fn(*args)
+            end.record()
+            torch.cuda.synchronize()
+            self.ms[name].append(start.elapsed_time(end) / self._reps)
+            return rc
+
+        return timed
+
+
+def launch_ms(call, names, reps: int) -> dict:
+    """{entry point: mean device ms of one launch} for each C entry point in
+    ``names`` that ``call()`` reaches through ``cuda_build.load_library``."""
+    from gs2pc_torch.ops import cuda_build
+
+    proxy = _TimedLibrary(cuda_build.load_library(), names, reps)
+    with mock.patch.object(cuda_build, "load_library", lambda: proxy):
+        call()
+    return {n: sum(v) / len(v) for n, v in proxy.ms.items()}
+
+
+def k1_ptxas(log: str) -> str:
+    """The ptxas register / shared-memory lines of the blend kernel."""
+    lines = log.splitlines()
+    out = []
+    for i, ln in enumerate(lines):
+        if "Compiling entry" in ln and "blend_tiles_kernel" in ln:
+            out += [x.strip() for x in lines[i + 1:i + 4] if "Compiling" not in x]
+    return " | ".join(out)
+
+
+def camera_inputs(n_gaussians: int, device):
+    """K1's main-mode inputs on camera 0 and the slab-1 calls of the
+    depth-slab sweep, built by the checkout's own stages."""
+    from gs2pc_torch.camera import build_camera_batch
+    from gs2pc_torch.models.gaussians import Gaussians
+    from gs2pc_torch.ops import blend_kernel as B
+    from gs2pc_torch.ops import rasterize as R
+    from gs2pc_torch.ops.projection import preprocess
+    from gs2pc_torch.parallel.gauss_shard import render_sweep_gauss_sharded
+    from gs2pc_torch.sweep import render_arrays
+    from gs2pc_torch.utils import capture
+
+    a = capture.make_scene_arrays(n_gaussians)
+    g = Gaussians.from_numpy(a.xyz, a.log_scales, a.rots, a.colours, a.opacities, device=device)
+    transforms, intr = capture.make_poses(1, 1280, 720)
+    m = capture.vignette_mask(1280, 720)
+    cams = build_camera_batch(transforms, intr, masks={n: m for n in transforms}, device=device)
+    cam = cams.at(0)
+    cfg = R.TileConfig(width_pad=cams.width_pad, height_pad=cams.height_pad,
+                       compact=True, surface_compact=True)
+    prep = preprocess(g.xyz, g.covariance_factors(), g.opacities, g.keep_mask, cam,
+                      adaptive_radius=False)
+    args, kw, _ = R.blend_inputs(prep, g.colours, cam, cfg, calc_surface_distance=True)
+    calls = []
+
+    def record(*a_, **k_):
+        calls.append((a_, k_))
+        return B.blend_tiles(*a_, **k_)
+
+    with mock.patch.object(R, "blend_tiles", record):
+        render_sweep_gauss_sharded(render_arrays(g), cams, cfg, [device] * N_SLABS)
+    modes = {"main": (args, kw)}
+    for a_, k_ in calls[1::N_SLABS]:
+        modes[B.mode_of(k_["init_trans"], k_["ed_override"], k_["early_stop"])] = (a_, k_)
+    return prep, cfg, modes
+
+
+def time_k1(modes, reps: int) -> dict:
+    from gs2pc_torch.ops import blend_kernel as B
+
+    out = {}
+    for mode, (args, kw) in modes.items():
+        launch = launch_ms(lambda: B.blend_tiles(*args, **kw), [K1_ENTRY], reps)
+        wrapper = cuda_ms(lambda: B.blend_tiles(*args, **kw), reps)
+        out[mode] = {"launch_ms": launch[K1_ENTRY], "wrapper_ms": wrapper,
+                     "pairs": int(args[1].numel())}
+    return out
+
+
+def time_k2(prep, cfg, reps: int) -> dict:
+    from gs2pc_torch.ops import rasterize as R
+
+    def call():
+        return R.duplicate_with_keys(prep, cfg, circle_cull=False)
+
+    launch = launch_ms(call, K2_ENTRIES, reps)
+    wrapper = cuda_ms(call, reps)
+    count, write = (launch[n] for n in K2_ENTRIES)
+    return {"count_ms": count, "write_ms": write, "scan_sync_ms": wrapper - count - write,
+            "wrapper_ms": wrapper, "pairs": int(call()[0].numel())}
+
+
+def device_profile(fn) -> dict:
+    """Run ``fn`` once under torch.profiler: its wall, the card's busy time
+    (the summed time of every kernel and copy on the card) and the kernels
+    that took the most of it."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    # Device-side events, without the phase ranges (user annotations).
+    from gs2pc_torch.utils import log
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False) and e.key not in log.PHASE_SECONDS]
+    events = sorted(kernels, key=dev_us, reverse=True)
+    busy = sum(dev_us(e) for e in events) / 1e6
+    return {"wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
+            "top_ms": {e.key[:60]: dev_us(e) / 1e3 for e in events[:10]}}
+
+
+def time_e2e(root: str, n_gaussians: int, n_runs: int, profile: bool) -> dict:
+    """The production conversion on the capture scene (16 cameras at
+    1280x720 with masks, 10M points, surface distances on) through
+    ``cli.main``, ``n_runs`` times: per run the wall, disk to disk, and the
+    phases of ``utils.log.PHASE_SECONDS``; with ``profile``, one more run
+    under ``device_profile``."""
+    import shutil
+
+    from gs2pc_torch import cli
+    from gs2pc_torch.utils import capture, log
+
+    work = os.path.join(root, "build", "bench_kernels_e2e")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        a = capture.make_scene_arrays(n_gaussians)
+        transforms, intr = capture.make_poses(16, 1280, 720)
+        ply, tj, mask_dir = capture.write_capture(work, a, transforms, intr, with_masks=True)
+        argv = ["--input_path", ply, "--transform_path", tj, "--mask_path", mask_dir,
+                "--output_path", os.path.join(work, "cloud.ply"), "--num_points", "10000000",
+                "--surface_distance_std", "1e6", "--seed", "0", "--quiet"]
+        runs = []
+        for _ in range(n_runs):
+            log.reset_phases()
+            t0 = time.perf_counter()
+            cli.main(argv)
+            runs.append(dict(wall_s=time.perf_counter() - t0, **log.PHASE_SECONDS))
+        out = {"runs": runs}
+        if profile:
+            out["profile"] = device_profile(lambda: cli.main(argv))
+        return out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=None,
+                    help="checkout whose gs2pc_torch is timed (default: this one)")
+    ap.add_argument("--device", default="cuda:0")
+    ap.add_argument("--gaussians", type=int, default=3_000_000)
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--e2e", type=int, default=0,
+                    help="also run the 16-camera conversion this many times")
+    ap.add_argument("--profile", action="store_true",
+                    help="with --e2e, profile one more conversion (card busy time)")
+    ap.add_argument("--out", default=None, help="also write the JSON record here")
+    args = ap.parse_args(argv)
+    root = os.path.abspath(args.root or os.path.join(os.path.dirname(__file__), "..", ".."))
+    sys.path.insert(0, root)
+    import torch
+
+    from gs2pc_torch.ops import cuda_build
+
+    device = torch.device(args.device)
+    if device.type != "cuda" or not torch.cuda.is_available():
+        raise SystemExit("bench_kernels times the card with CUDA events: it needs a CUDA device")
+    torch.cuda.set_device(device)
+    t0 = time.perf_counter()
+    cuda_build.load_library()
+    rec = {"root": root, "device": torch.cuda.get_device_name(device),
+           "build_s": time.perf_counter() - t0,
+           "k1_ptxas": k1_ptxas(cuda_build.BUILD_INFO.get("log", ""))}
+    prep, cfg, modes = camera_inputs(args.gaussians, device)
+    from gs2pc_torch.ops import blend_kernel as B
+
+    chunks = B.blend_tiles(*modes["main"][0], **modes["main"][1]).chunks.double()
+    rec["chunks"] = {"mean": float(chunks.mean()),
+                     "p99": float(torch.quantile(chunks, 0.99)), "max": float(chunks.max())}
+    rec["k1"] = time_k1(modes, args.reps)
+    rec["k2"] = time_k2(prep, cfg, args.reps)
+    if args.e2e:
+        rec["e2e"] = time_e2e(root, args.gaussians, args.e2e, args.profile)
+    line = json.dumps(rec)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as fh:
+            fh.write(line + "\n")
+    print(line, flush=True)
+    return rec
+
+
+if __name__ == "__main__":
+    main()

@@ -15,6 +15,7 @@ from gs2pc.ops.rasterize import render_tile_camera as jax_render
 from gs2pc_torch.camera import CameraBatch
 from gs2pc_torch.ops import blend_kernel as B
 from gs2pc_torch.ops import rasterize as R
+from gs2pc_torch.ops.projection import preprocess
 from tests.test_pallas import _arrays
 from tests.test_render import look_at_camera
 
@@ -105,6 +106,46 @@ def test_render_without_surface_pass_matches_jax():
     ot = R.render_tile_camera(*t_arrays, tc, cfg, calc_surface_distance=False)
     _compare(oj, ot)
     assert (ot.surf_dist.numpy() > 1e30).all()
+
+
+@pytest.mark.parametrize("blend", ["xla", "pallas"])
+def test_twin_tie_rule_matches_jax_exact_path(blend):
+    """Gaussian 0 lies in front of the rest with opacity 1 and a wide
+    footprint, so alpha reaches its 0.99 clamp on a disk of pixels and every
+    one of them ties for the max contribution (w = 0.99 exactly): JAX's
+    exact path and the twin both take the lowest padded pixel."""
+    from gs2pc.camera import build_camera_batch
+    from gs2pc.models.gaussians import Gaussians as JaxGaussians
+    from tests.conftest import make_synthetic_scene
+
+    sc = make_synthetic_scene(150, seed=3, spread=1.0, scale_lo=-3.5, scale_hi=-1.5)
+    xyz, ls = np.array(sc.xyz), np.array(sc.log_scales)
+    rots, opa = np.array(sc.rots), np.array(sc.opacities) * 0.9
+    xyz[0], ls[0], rots[0], opa[0] = (0.1, 0.05, -2.0), (0.0, 0.0, 0.0), (1, 0, 0, 0), 1.0
+    g = JaxGaussians.create(xyz, ls, rots, np.array(sc.colours), opa)
+    arrays = (g.xyz, g.covariance_factors(), g.opacities, g.colours, jnp.ones(150, bool))
+    c2w, intr = look_at_camera()
+    jb, wp, hp = build_camera_batch({"cam0": c2w.tolist()}, {"cam0": intr})
+    tc = CameraBatch.from_jax_fields(jb, wp, hp, device="cpu").at(0)
+    jcfg = JaxTileConfig(width_pad=wp, height_pad=hp, pair_budget=PAIR_BUDGET, run_cap=256,
+                         run_chunk=128, tile_batch=16)
+    oj = jax_render(*arrays, jb.at(0), jcfg, want_best_pix=True,
+                    use_pallas=blend == "pallas", pallas_interpret=True)
+    cfg = R.TileConfig(width_pad=wp, height_pad=hp, run_cap=256, run_chunk=128)
+    ot = R.render_tile_camera(*[torch.tensor(np.asarray(a)) for a in arrays], tc, cfg,
+                              want_best_pix=True)
+    assert float(oj.contrib[0]) == float(ot.contrib[0]) == np.float32(0.99)
+    # The tie is real: the clamp holds on many pixels of the first tiles.
+    prep = preprocess(*[torch.tensor(np.asarray(a)) for a in arrays[:3]],
+                      torch.ones(150, dtype=torch.bool), tc)
+    ys, xs = torch.meshgrid(torch.arange(hp, dtype=torch.float32),
+                            torch.arange(wp, dtype=torch.float32), indexing="ij")
+    dx, dy = xs - prep.xy[0, 0], ys - prep.xy[0, 1]
+    a, b, c = prep.conic[0]
+    power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
+    assert int((torch.exp(power) >= 0.99).sum()) > 10
+    assert int(oj.best_pix[0]) == int(ot.best_pix[0])
+    _compare(oj, ot)
 
 
 def test_blend_wrapper_refuses_bad_inputs():

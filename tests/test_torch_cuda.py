@@ -72,11 +72,47 @@ def test_pairs_kernel_matches_twin(cuda, surface):
     prep = preprocess(g.xyz, g.covariance_factors(), g.opacities, g.keep_mask, cam,
                       adaptive_radius=not surface)
     before = R.duplicate_with_keys.launches
-    kk, kg = R.sort_pairs(*R.duplicate_with_keys(prep, cfg, not surface))
+    uk, ug = R.duplicate_with_keys(prep, cfg, not surface)
     assert R.duplicate_with_keys.launches == before + 2
-    tk, tg = R.sort_pairs(*R.duplicate_with_keys_torch(prep, cfg, not surface))
+    tuk, tug = R.duplicate_with_keys_torch(prep, cfg, not surface)
+    # The same pair at the same index before the sort, and so after it.
+    assert torch.equal(uk, tuk) and torch.equal(ug, tug)
+    kk, kg = R.sort_pairs(uk, ug)
+    tk, tg = R.sort_pairs(tuk, tug)
     assert kk.numel() > 0
     assert torch.equal(kk, tk) and torch.equal(kg, tg)
+
+
+def test_pairs_kernel_whole_screen_gaussian(cuda):
+    """Full-rect K2 with one Gaussian on every tile of a 1280x720 camera
+    among small and invalid ones (whose rects are garbage): the pair-parallel
+    write puts every pair where the twin does, unsorted."""
+    from gs2pc_torch.ops.projection import Preprocessed
+
+    gw, gh = 80, 45
+    r = np.random.default_rng(11)
+    n = 4000
+    x0 = r.integers(0, gw - 3, n)
+    y0 = r.integers(0, gh - 3, n)
+    rmin = np.stack([x0, y0], 1)
+    rmax = rmin + r.integers(1, 4, (n, 2))
+    rmin[7], rmax[7] = (0, 0), (gw, gh)
+    valid = r.uniform(size=n) < 0.7
+    valid[7] = True
+    rmin[~valid] = r.integers(-50, 50, (int((~valid).sum()), 2))
+    t = lambda a, dt: torch.tensor(a, dtype=dt, device=cuda)  # noqa: E731
+    area = (rmax - rmin).prod(1) * valid
+    prep = Preprocessed(
+        depth=t(r.uniform(1, 9, n), torch.float32), xy=t(r.uniform(0, 1000, (n, 2)), torch.float32),
+        conic=t(np.zeros((n, 3)), torch.float32), opacity=t(np.ones(n), torch.float32),
+        radius=t(np.ones(n), torch.float32), r_alpha_sq=t(np.full(n, 3.4e38), torch.float32),
+        radius_q=t(np.ones(n), torch.float32), rect_min=t(rmin, torch.int32),
+        rect_max=t(rmax, torch.int32), tiles_touched=t(area, torch.int32), valid=t(valid, torch.bool))
+    cfg = R.TileConfig(width_pad=16 * gw, height_pad=16 * gh)
+    uk, ug = R.duplicate_with_keys(prep, cfg, False)
+    tk, tg = R.duplicate_with_keys_torch(prep, cfg, False)
+    assert uk.numel() == int(area.sum()) >= gw * gh
+    assert torch.equal(uk, tk) and torch.equal(ug, tg)
 
 
 @pytest.mark.parametrize("compact,surface_compact", [(True, True), (False, False)])
@@ -139,6 +175,118 @@ def test_blend_kernel_modes_match_twin(cuda, mode):
     name = B.mode_of(kw.get("init_trans"), kw.get("ed_override"), kw.get("early_stop", True))
     assert B.blend_tiles.launches_by_mode[name] == before.get(name, 0) + 1
     _assert_kernel_matches_twin(k, B.blend_tiles_torch(*args, **kw))
+
+
+@pytest.mark.parametrize("run_chunk", [1, 128, 256])
+def test_blend_kernel_run_chunk_matches_twin(cuda, run_chunk):
+    g = _scene(3000, 9, cuda)
+    batch, cam = _camera(cuda)
+    cfg = R.TileConfig(width_pad=batch.width_pad, height_pad=batch.height_pad, run_cap=512,
+                       run_chunk=run_chunk, compact=True, surface_compact=True)
+    prep = preprocess(g.xyz, g.covariance_factors(), g.opacities, g.keep_mask, cam,
+                      adaptive_radius=False)
+    args, kw, _ = R.blend_inputs(prep, g.colours, cam, cfg, calc_surface_distance=True)
+    _assert_kernel_matches_twin(B.blend_tiles(*args, **kw), B.blend_tiles_torch(*args, **kw))
+
+
+def test_blend_kernel_more_tiles_than_blocks(cuda):
+    """3,600 tiles at 1280x720, more than the resident blocks, launched in
+    the wrapper's longest-run-first tile order."""
+    g = _scene(3000, 10, cuda)
+    batch, cam = _camera(cuda, width=1280, height=720)
+    cfg = R.TileConfig(width_pad=batch.width_pad, height_pad=batch.height_pad, run_cap=1024,
+                       compact=True, surface_compact=True)
+    assert cfg.num_tiles > 132 * 8
+    prep = preprocess(g.xyz, g.covariance_factors(), g.opacities, g.keep_mask, cam,
+                      adaptive_radius=False)
+    args, kw, _ = R.blend_inputs(prep, g.colours, cam, cfg, calc_surface_distance=True)
+    _assert_kernel_matches_twin(B.blend_tiles(*args, **kw), B.blend_tiles_torch(*args, **kw))
+
+
+def _direct_blend(cuda, rows, n_run, mask, run_chunk=128, surface_compact=True):
+    """K1 and its twin on hand-made inputs: a 2x2-tile image whose every tile
+    runs Gaussians 0..n_run-1 of the compact table ``rows``."""
+    gw = gh = 2
+    num_tiles = gw * gh
+    table = torch.tensor(np.asarray(rows, np.float32), device=cuda)
+    gid = torch.arange(n_run, dtype=torch.int32, device=cuda).repeat(num_tiles)
+    starts = torch.arange(num_tiles, dtype=torch.int32, device=cuda) * n_run
+    counts = torch.full((num_tiles,), n_run, dtype=torch.int32, device=cuda)
+    m = torch.tensor(mask.reshape(-1), dtype=torch.uint8, device=cuda)
+    kw = dict(width=16 * gw, height=16 * gh, width_pad=16 * gw, height_pad=16 * gh,
+              run_chunk=run_chunk, with_surface=True, surface_compact=surface_compact)
+    args = (table, gid, starts, counts, m)
+    return B.blend_tiles(*args, **kw), B.blend_tiles_torch(*args, **kw)
+
+
+def _rows(r, n, opacity, conic=0.002):
+    rgb = r.integers(0, 1 << 24, n).astype(np.float32)
+    return np.stack([r.uniform(0, 32, n), r.uniform(0, 32, n), np.full(n, conic), np.zeros(n),
+                     np.full(n, conic), opacity, np.linspace(1.0, 9.0, n), rgb], 1)
+
+
+@pytest.mark.parametrize("case", ["cap_low_opacity", "ties", "all_masked_tile", "cull_shapes"])
+def test_blend_kernel_edge_cases_match_twin(cuda, case):
+    """A run at the 4,096 cap that never stops; exact ties of w inside a warp
+    and across warps (the lowest padded pixel wins); a tile whose pixels are
+    all masked though its run is not empty; the shapes the kernel's warp
+    cull must get right (sub-pixel splats, near-degenerate conics, opacity
+    below 1/255), which the twin does not cull."""
+    r = np.random.default_rng(12)
+    mask = np.ones((32, 32), np.uint8)
+    if case == "cull_shapes":
+        rows = np.concatenate([
+            _rows(r, 200, r.uniform(0.5, 0.99, 200), conic=2.0),
+            _rows(r, 50, r.uniform(0.3, 0.9, 50), conic=0.01),
+            _rows(r, 50, r.uniform(0.001, 0.0039, 50), conic=0.002),
+        ])
+        rows[200:250, 3] = 0.00999 * r.choice([-1.0, 1.0], 50)  # det ~ 2e-7
+        rows = rows[r.permutation(300)]
+        rows[:, 6] = np.linspace(1.0, 9.0, 300)
+        k, t = _direct_blend(cuda, rows, 300, mask)
+    elif case == "cap_low_opacity":
+        # alpha ~ 0.001-0.006: about a third of the pairs blend, T stays > 1e-4.
+        k, t = _direct_blend(cuda, _rows(r, 4096, r.uniform(0.001, 0.006, 4096)), 4096, mask)
+        assert torch.equal(k.chunks, torch.full_like(k.chunks, 32))
+        assert float(k.live.max()) > 1e-4
+    elif case == "ties":
+        rows = _rows(r, 300, r.uniform(0.01, 0.1, 300))
+        # Gaussians 0 and 1 have a flat footprint: alpha 0.5, then 0.2, on
+        # every pixel, so every pixel ties.  The first two rows (warp 0 of
+        # tiles 0 and 1) and five pixels of the third are masked: the winner
+        # is lane 5 of warp 1 of tile 0.
+        rows[:2, 2:5] = 0.0
+        rows[0, 5], rows[1, 5] = 0.5, 0.2
+        mask[:2, :] = 0
+        mask[2, :5] = 0
+        k, t = _direct_blend(cuda, rows, 300, mask, surface_compact=False)
+        want = 2 * 32 + 5
+        assert int(k.best_pix[0]) == want and int(k.best_pix[1]) == want
+        assert torch.equal(k.best_pix, t.best_pix)
+    else:
+        mask[:16, 16:] = 0  # tile 1
+        k, t = _direct_blend(cuda, _rows(r, 500, r.uniform(0.01, 0.1, 500)), 500, mask,
+                             surface_compact=False)
+        assert int(k.chunks[1]) == 0
+    _assert_kernel_matches_twin(k, t)
+
+
+def test_camera_without_pairs_on_card(cuda):
+    """Every Gaussian culled: K2 writes nothing and K1 blends empty runs."""
+    g = _scene(500, 13, cuda)
+    batch, cam = _camera(cuda)
+    cfg = R.TileConfig(width_pad=batch.width_pad, height_pad=batch.height_pad)
+    alive = torch.zeros_like(g.keep_mask)
+    prep = preprocess(g.xyz, g.covariance_factors(), g.opacities, alive, cam,
+                      adaptive_radius=False)
+    keys, gids = R.duplicate_with_keys(prep, cfg, False)
+    assert keys.numel() == 0 and gids.numel() == 0
+    out = R.render_tile_camera(g.xyz, g.covariance_factors(), g.opacities, g.colours, alive,
+                               cam, cfg)
+    valid = cam.mask.reshape(batch.height_pad, batch.width_pad) != 0
+    assert float(out.contrib.abs().max()) == 0.0
+    assert torch.equal(out.image[valid], torch.ones_like(out.image[valid]))
+    assert bool((out.surf_dist == B.FLOAT_MAX).all())
 
 
 def test_render_tile_camera_on_card_matches_cpu(cuda):

@@ -56,6 +56,32 @@ def test_twin_matches_jax_build_pairs(n, seed, surface):
     np.testing.assert_array_equal((keys & 0xFFFFFFFF).numpy(), dbits)
 
 
+@pytest.mark.parametrize("surface", [True, False], ids=["full_rect", "circle_cull"])
+@pytest.mark.parametrize("n,seed", [(150, 3), (200, 8)])
+def test_twin_unsorted_order_is_gid_major_rect_row_major(n, seed, surface):
+    """Before the sort the twin emits each valid Gaussian's tiles in gid
+    order and, within a Gaussian, rect row-major (the circle cull only drops
+    tiles): the index the pair-parallel CUDA write gives every pair."""
+    prep, wp, hp = _jax_prep(n, seed, adaptive=not surface)
+    tp = _to_torch(prep)
+    cfg = R.TileConfig(width_pad=wp, height_pad=hp)
+    keys, gids = R.duplicate_with_keys_torch(tp, cfg, not surface)
+    rmin, rmax = tp.rect_min.numpy(), tp.rect_max.numpy()
+    order = [(g, ty * cfg.grid_w + tx)
+             for g in np.flatnonzero(tp.valid.numpy())
+             for ty in range(rmin[g, 1], rmax[g, 1])
+             for tx in range(rmin[g, 0], rmax[g, 0])]
+    got = list(zip(gids.tolist(), (keys >> 32).tolist()))
+    if surface:
+        assert got == order
+    else:
+        kept = set(got)
+        assert [pair for pair in order if pair in kept] == got
+        assert 0 < len(got) < len(order)
+    dbits = tp.depth.view(torch.int32).long()[gids.long()]
+    assert torch.equal(keys & 0xFFFFFFFF, dbits)
+
+
 def test_circle_cull_drops_pairs():
     prep, wp, hp = _jax_prep(150, 3, adaptive=True)
     cfg = R.TileConfig(width_pad=wp, height_pad=hp)
