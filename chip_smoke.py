@@ -38,7 +38,9 @@ Phases (each prints one line or more; any failure exits non-zero):
                ops) on the TPU tool's ones and a seeded uniform(0.5, 1.5)
                block, cuda_probe2 (K4, levels 0-6) on try_level's inputs and
                a seeded table; each held to its twin (bit for bit for roll,
-               min and scan, 1e-5 relative elsewhere) and timed
+               min and scan, 1e-5 relative elsewhere) and timed, launch alone
+               and through the wrapper, beside an empty kernel's launch (the
+               floor) and torch.roll / torch.cumprod for roll and scan
  11. oracle    validate_psnr's functions on the capture scene (200k Gaussians,
                one 1280x720 camera, its mask): the tile renderer at the
                production config against render_dense(rect_cull=True), PSNR
@@ -49,10 +51,12 @@ Phases (each prints one line or more; any failure exits non-zero):
                writer, the trace and its phases, colours against the tile CLI
 The line before the last is the kernels' JSON record (max_abs_err at the
 shape of phases 7-8 and 10; ms the time through the wrapper, also given as
-wrapper_ms, and launch_ms the launch alone for K1 and K2's count + write,
-null for K3 / K4; launches from the e2e run for the main mode,
-from the depth-slab sweep of phase 9 for the others and from the probe
-tools' run of phase 10 for K3 / K4), the last line the device record.
+wrapper_ms, and launch_ms the launch alone, K2's count + write; K3 as the
+mean of its nine ops and apart for roll and scan, the ops one PyTorch call
+computes (library_ms: torch.roll, torch.cumprod); launches from the e2e run
+for the main mode, from the depth-slab sweep of phase 9 for the others and
+from the probe tools' run of phase 10 for K3 / K4), the last line the
+device record.
 """
 
 from __future__ import annotations
@@ -783,22 +787,26 @@ def phase_probes(device):
 
     from gs2pc_torch.ops import probe_kernels as PK
     from gs2pc_torch.tools import cuda_probe, cuda_probe2
+    from gs2pc_torch.tools.bench_kernels import time_probes
 
     dev = str(device)
     PK.probe_op.launches = 0
+    PK.probe_op.launches_by_op.clear()
     PK.probe_blend.launches = 0
     runs = [cuda_probe.main(["--device", dev, "--input", kind]) for kind in ("ones", "uniform")]
     runs += [cuda_probe2.main(["--device", dev, "--input", kind]) for kind in ("ones", "seeded")]
-    launches = {"probe_op": PK.probe_op.launches, "probe_blend": PK.probe_blend.launches}
+    launches = {"probe_op": PK.probe_op.launches, "probe_blend": PK.probe_blend.launches,
+                **{f"probe_op[{op}]": n for op, n in PK.probe_op.launches_by_op.items()}}
     failed = [case for r in runs for case, rec in r.items() if not rec["ok"]]
     if failed:
         fail(f"probe cases failed: {failed}")
-    want = {"probe_op": 2 * len(PK.PROBE_OPS), "probe_blend": 2 * len(PK.LEVELS)}
+    want = {"probe_op": 2 * len(PK.PROBE_OPS), "probe_blend": 2 * len(PK.LEVELS),
+            **{f"probe_op[{op}]": 2 for _, op in PK.PROBE_OPS}}
     if launches != want:
         fail(f"probe launches {launches}, expected {want}")
 
     err3, err4 = 0.0, 0.0
-    ms3, plain3 = {}, {}
+    errs3, plain3 = {}, {}
     for kind in ("ones", "uniform"):
         x = cuda_probe.make_input(kind, device, seed=0)
         for _, op in PK.PROBE_OPS:
@@ -809,8 +817,8 @@ def phase_probes(device):
             if op in PK.EXACT_OPS and d != 0.0 or rel > PROBE_RTOL:
                 fail(f"K3 {op} ({kind}) differs from its twin: abs {d}, relative {rel}")
             err3 = max(err3, d)
+            errs3[op] = max(errs3.get(op, 0.0), d)
             if kind == "uniform":
-                ms3[op] = cuda_ms(lambda: PK.probe_op(op, x), 50)
                 plain3[op] = cuda_ms(lambda: PK.probe_op_torch(op, x), 20)
     for kind in ("ones", "seeded"):
         inputs = cuda_probe2.make_inputs(kind, device, seed=0)
@@ -824,17 +832,41 @@ def phase_probes(device):
                                  for n in ("rgb", "ed", "einv")))
     inputs = cuda_probe2.make_inputs("seeded", device, seed=0)
     res = PK.probe_blend(6, *inputs)
-    k4 = dict(ms=cuda_ms(lambda: PK.probe_blend(6, *inputs), 50),
+    # Launch alone and through the wrapper, the floor and the library calls.
+    t = time_probes(device, 200)
+    ms3 = {op: v["wrapper_ms"] for op, v in t["k3"].items()}
+    launch3 = {op: v["launch_ms"] for op, v in t["k3"].items()}
+    dev3 = {op: v["device_ms"] for op, v in t["k3"].items()}
+    k4 = dict(ms=t["k4"]["wrapper_ms"], launch_ms=t["k4"]["launch_ms"],
+              device_ms=t["k4"]["device_ms"],
               plain_ms=cuda_ms(lambda: PK.probe_blend_torch(6, *inputs), 5),
               bound=k4_bound(inputs, res), max_abs_err=err4)
-    k3 = dict(ms=sum(ms3.values()) / len(ms3), plain_ms=sum(plain3.values()) / len(plain3),
-              bound=k3_bound(), max_abs_err=err3)
-    print("probes: " + ", ".join(f"{op} {ms3[op]:.4f} ms (twin {plain3[op]:.4f})" for op in ms3)
+    k3 = dict(ms=sum(ms3.values()) / len(ms3), launch_ms=sum(launch3.values()) / len(launch3),
+              plain_ms=sum(plain3.values()) / len(plain3), bound=k3_bound(), max_abs_err=err3,
+              ops={op: dict(ms=ms3[op], launch_ms=launch3[op], plain_ms=plain3[op],
+                            library_ms=t["library_ms"].get(op), max_abs_err=errs3[op])
+                   for op in ms3})
+    floor = t["floor_ms"]
+
+    def op_line(op):
+        lib = t["library_ms"].get(op)
+        return (f"{op} {launch3[op]:.4f} / {dev3[op]:.4f} / {ms3[op]:.4f} ms (twin "
+                f"{plain3[op]:.4f}"
+                + (f", torch.{'roll' if op == 'roll' else 'cumprod'} {lib:.4f}" if lib else "")
+                + ")")
+
+    lo, hi = t["floor_range_ms"]
+    print("probes, launch alone / device time (profiler) / through the wrapper: "
+          + ", ".join(map(op_line, ms3))
           + f"; K3 max |err| {err3:.3g} (exact ops 0, others <= {PROBE_RTOL:g} relative), "
-          f"bound {k3['bound'][0]:.2e} ms; K4 level 6 seeded {k4['ms']:.4f} ms (twin "
-          f"{k4['plain_ms']:.3f} ms), bound {k4['bound'][0]:.2e} ms ({k4['bound'][1]}), max "
-          f"|err| {err4:.3g} (<= {PROBE_RTOL:g} relative); launches on the tools' path "
-          f"{launches}", flush=True)
+          f"bound {k3['bound'][0]:.2e} ms; K4 level 6 seeded {k4['launch_ms']:.4f} / "
+          f"{k4['device_ms']:.4f} / {k4['ms']:.4f} ms (twin {k4['plain_ms']:.3f} ms), bound "
+          f"{k4['bound'][0]:.2e} ms ({k4['bound'][1]}), max |err| {err4:.3g} (<= {PROBE_RTOL:g} "
+          f"relative); floor (an empty kernel) launch alone {lo:.4f} ms before and {hi:.4f} ms "
+          f"after them, device time {t['floor_device_ms']:.4f} ms, "
+          f"{'above' if min(lo, hi) > max(k3['bound'][0], k4['bound'][0]) else 'not above'} both "
+          f"bounds; K3 launch alone {max(launch3.values()) / floor:.2f}x the mean floor at most, "
+          f"K4 {k4['launch_ms'] / floor:.2f}x; launches on the tools' path {launches}", flush=True)
     return launches, k3, k4
 
 
@@ -961,7 +993,7 @@ def main() -> int:
     t0 = time.perf_counter()
     cuda_build.load_library()
     ptxas = [ln.strip() for ln in cuda_build.BUILD_INFO["log"].splitlines()
-             if "registers" in ln or "Compiling entry" in ln]
+             if "registers" in ln or "Compiling entry" in ln or "stack frame" in ln]
     print(f"build: {time.perf_counter() - t0:.1f}s -> {cuda_build.BUILD_INFO['path']}; "
           + " | ".join(ptxas), flush=True)
     t0 = time.perf_counter()
@@ -993,10 +1025,10 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    def entry(name, source, replaces, n, err, t, plain, bound, launch=None):
+    def entry(name, source, replaces, n, err, t, plain, bound, launch=None, library=None):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": n, "max_abs_err": err, "ms": t, "plain_ms": plain,
-                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library,
                 "wrapper_ms": t, "launch_ms": launch}
 
     k1_src, k1_tpu = "gs2pc_torch/csrc/blend.cu", "gs2pc/ops/pallas_blend.py:808"
@@ -1014,10 +1046,15 @@ def main() -> int:
               ms["k2_count"] + ms["k2_write"]),
         entry("probe_op", "gs2pc_torch/csrc/probes.cu", "tools/pallas_probe.py:17",
               probe_launches["probe_op"], k3["max_abs_err"], k3["ms"], k3["plain_ms"],
-              k3["bound"]),
+              k3["bound"], k3["launch_ms"]),
+        *(entry(f"probe_op[{op}]", "gs2pc_torch/csrc/probes.cu", "tools/pallas_probe.py:17",
+                probe_launches[f"probe_op[{op}]"], k3["ops"][op]["max_abs_err"],
+                k3["ops"][op]["ms"], k3["ops"][op]["plain_ms"], k3["bound"],
+                k3["ops"][op]["launch_ms"], k3["ops"][op]["library_ms"])
+          for op in ("roll", "scan")),
         entry("probe_blend", "gs2pc_torch/csrc/probes.cu", "tools/pallas_probe2.py:158",
               probe_launches["probe_blend"], k4["max_abs_err"], k4["ms"], k4["plain_ms"],
-              k4["bound"]),
+              k4["bound"], k4["launch_ms"]),
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

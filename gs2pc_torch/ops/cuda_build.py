@@ -52,7 +52,8 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
          _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     ),
-    "gs2pc_probe_op": (_I, [_I, _P, _P, _P, _P]),
+    "gs2pc_probe_op": (_I, [_I, _P, _P, _P]),
+    "gs2pc_probe_floor": (_I, [_P]),
     "gs2pc_probe_blend": (_I, [_I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P]),
 }
 

@@ -13,8 +13,10 @@ fallback between the two.
 
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from gs2pc_torch.ops.blend import ALPHA_MAX, ALPHA_MIN, T_EPS, TILE
@@ -84,16 +86,19 @@ def probe_op(op: str, x: torch.Tensor) -> torch.Tensor:
 
     lib = load_library()
     x = x.contiguous()
-    scratch = torch.empty(2 * RS, dtype=torch.float32, device=x.device)
+    if x.data_ptr() % 16:  # the kernel moves float4s
+        x = x.clone()
     out = torch.empty_like(x)
-    rc = lib.gs2pc_probe_op(_OP_CODE[op], x.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-                            stream_ptr(x))
+    rc = lib.gs2pc_probe_op(_OP_CODE[op], x.data_ptr(), out.data_ptr(), stream_ptr(x))
     probe_op.launches += 1
+    probe_op.launches_by_op[op] += 1
     check(rc, "gs2pc_probe_op")
     return out
 
 
+# Kernel launches, in all and by op; a caller resets them (= 0, .clear()).
 probe_op.launches = 0
+probe_op.launches_by_op = collections.Counter()
 
 
 def probe_op_torch(op: str, x: torch.Tensor) -> torch.Tensor:
@@ -136,12 +141,11 @@ def _check_blend(level, starts, counts, dims, table, mask) -> None:
         if t.device != starts.device:
             raise ValueError("all probe_blend inputs must be on one device")
     # Every chunk a tile can enter lies inside the table (the TPU kernel
-    # copies whole 128-column chunks).
-    st, ct = starts.long().cpu(), counts.long().cpu()
-    n_ch = torch.where(ct > 0, (ct + RS - 1) // RS, 0)
+    # copies whole 128-column chunks): one copy to the host, checked there.
+    st, ct = torch.stack((starts, counts)).cpu().numpy().astype(np.int64)
+    n_ch = np.where(ct > 0, (ct + RS - 1) // RS, 0)
     used = n_ch > 0
-    if bool(used.any()) and (int(st[used].min()) < 0
-                             or int((st + n_ch * RS)[used].max()) > table.shape[1]):
+    if used.any() and (st[used].min() < 0 or (st + n_ch * RS)[used].max() > table.shape[1]):
         raise ValueError("a tile's chunks reach outside the table's columns")
 
 

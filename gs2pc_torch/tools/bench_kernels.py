@@ -1,14 +1,21 @@
 """Times K1 (every mode) and K2 at the main path's shape: camera 0 of the
 capture scene (3M Gaussians, 1280x720, its vignette mask, surface pass,
 compact tables, run cap 4096) and, for K1's depth-slab modes, slab 1 of 4
-of the same camera, with the inputs the depth-slab sweep gives it.
+of the same camera, with the inputs the depth-slab sweep gives it; and the
+probes at the tools' shapes: K3 per op on the seeded uniform block of
+cuda_probe, K4 at level 6 on the seeded input of cuda_probe2.
 
 Each kernel is timed two ways with CUDA events, the mean over ``--reps``
-after a warm-up: through its wrapper (allocations and the PyTorch work
-around the launch included), and the launch alone (the C entry point,
-replayed ``--reps`` times on the arguments the wrapper gives it; every
-entry point of K1 and K2 is idempotent on its outputs).  K2's scan + sync
-is the wrapper's time less its count and write launches.
+after a warm-up (ten times as many for the probes): through its wrapper
+(allocations and the PyTorch work around the launch included), and the
+launch alone (the C entry point, replayed on the arguments the wrapper
+gives it; every entry point is idempotent on its outputs).  K2's scan +
+sync is the wrapper's time less its count and write launches.  Beside the
+probes: their kernels' own device time (torch.profiler), the floor (an
+empty kernel's entry point replayed the same way, before and after them),
+and the PyTorch calls that compute K3's roll and scan (torch.roll,
+torch.cumprod), which the port never calls.  ``--gaussians 0`` times the
+probes alone.
 
     python gs2pc_torch/tools/bench_kernels.py [--root DIR] [--e2e N [--profile]]
         [--gaussians 3000000] [--reps 20] [--out FILE]
@@ -37,6 +44,11 @@ from unittest import mock
 N_SLABS = 4
 K1_ENTRY = "gs2pc_blend_tiles"
 K2_ENTRIES = ("gs2pc_count_pairs", "gs2pc_write_pairs")
+K3_ENTRY = "gs2pc_probe_op"
+K4_ENTRY = "gs2pc_probe_blend"
+FLOOR_ENTRY = "gs2pc_probe_floor"
+# K3's ops that one PyTorch call computes (x is the (256, 128) block).
+K3_LIBRARY = {"roll": lambda x: x.roll(4, 1), "scan": lambda x: x.cumprod(1)}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -96,12 +108,13 @@ def launch_ms(call, names, reps: int) -> dict:
     return {n: sum(v) / len(v) for n, v in proxy.ms.items()}
 
 
-def k1_ptxas(log: str) -> str:
-    """The ptxas register / shared-memory lines of the blend kernel."""
+def kernel_ptxas(log: str, kernel: str) -> str:
+    """The ptxas stack / spill and register / shared-memory lines of the
+    kernels whose name contains ``kernel``."""
     lines = log.splitlines()
     out = []
     for i, ln in enumerate(lines):
-        if "Compiling entry" in ln and "blend_tiles_kernel" in ln:
+        if "Compiling entry" in ln and kernel in ln:
             out += [x.strip() for x in lines[i + 1:i + 4] if "Compiling" not in x]
     return " | ".join(out)
 
@@ -168,6 +181,86 @@ def time_k2(prep, cfg, reps: int) -> dict:
             "wrapper_ms": wrapper, "pairs": int(call()[0].numel())}
 
 
+def _device_us(e) -> float:
+    """A profiler event's own time on the card, in microseconds."""
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def kernel_device_ms(fn, kernel: str, n: int) -> float:
+    """Device ms a call of ``fn`` spends in kernels whose name contains
+    ``kernel``, the mean over ``n`` calls under torch.profiler: the
+    kernels' own time, without the host's launch overhead."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(_device_us(e) for e in prof.key_averages() if kernel in e.key) / 1e3 / n
+
+
+def floor_call(device):
+    """One launch of the empty kernel through its C entry point, or None for
+    a library without it."""
+    import torch
+
+    from gs2pc_torch.ops import cuda_build
+
+    if getattr(cuda_build.load_library(), FLOOR_ENTRY, None) is None:
+        return None
+    stream = torch.cuda.current_stream(device).cuda_stream
+    return lambda: getattr(cuda_build.load_library(), FLOOR_ENTRY)(stream)
+
+
+def time_probes(device, reps: int) -> dict:
+    """K3 per op and K4 at level 6: launch alone, through the wrapper, and
+    the kernels' own device time (torch.profiler); the floor, the empty
+    kernel launched alone before and after them (``floor_ms`` their mean)
+    and its device time; the library calls of K3's roll and scan.  A few
+    hundred ms of matrix products first bring the card's clocks up, which
+    launches of a few microseconds alone would not."""
+    import torch
+
+    from gs2pc_torch.ops import probe_kernels as PK
+    from gs2pc_torch.tools import cuda_probe, cuda_probe2
+
+    a = torch.ones((4096, 4096), device=device)
+    for _ in range(100):
+        a @ a
+    torch.cuda.synchronize(device)
+    floor = floor_call(device)
+    rec = {"floor_range_ms": [launch_ms(floor, [FLOOR_ENTRY], reps)[FLOOR_ENTRY]] if floor
+           else []}
+    x = cuda_probe.make_input("uniform", device, seed=0)
+    k3 = {}
+    for _, op in PK.PROBE_OPS:
+        def call(op=op):
+            return PK.probe_op(op, x)
+
+        k3[op] = {"launch_ms": launch_ms(call, [K3_ENTRY], reps)[K3_ENTRY],
+                  "wrapper_ms": cuda_ms(call, reps),
+                  "device_ms": kernel_device_ms(call, "probe_", 50)}
+    inputs = cuda_probe2.make_inputs("seeded", device, seed=0)
+
+    def k4():
+        return PK.probe_blend(6, *inputs)
+
+    rec["k3"] = k3
+    rec["k4"] = {"launch_ms": launch_ms(k4, [K4_ENTRY], reps)[K4_ENTRY],
+                 "wrapper_ms": cuda_ms(k4, reps),
+                 "device_ms": kernel_device_ms(k4, "probe_blend", 50)}
+    rec["library_ms"] = {op: cuda_ms(lambda f=f: f(x), reps) for op, f in K3_LIBRARY.items()}
+    rec["floor_ms"] = rec["floor_device_ms"] = None
+    if floor:
+        rec["floor_range_ms"].append(launch_ms(floor, [FLOOR_ENTRY], reps)[FLOOR_ENTRY])
+        rec["floor_ms"] = sum(rec["floor_range_ms"]) / 2
+        rec["floor_device_ms"] = kernel_device_ms(floor, "probe_floor", 50)
+    return rec
+
+
 def device_profile(fn) -> dict:
     """Run ``fn`` once under torch.profiler: its wall, the card's busy time
     (the summed time of every kernel and copy on the card) and the kernels
@@ -182,19 +275,16 @@ def device_profile(fn) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
     # Device-side events, without the phase ranges (user annotations).
     from gs2pc_torch.utils import log
 
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False) and e.key not in log.PHASE_SECONDS]
-    events = sorted(kernels, key=dev_us, reverse=True)
-    busy = sum(dev_us(e) for e in events) / 1e6
+    events = sorted(kernels, key=_device_us, reverse=True)
+    busy = sum(_device_us(e) for e in events) / 1e6
     return {"wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
-            "top_ms": {e.key[:60]: dev_us(e) / 1e3 for e in events[:10]}}
+            "top_ms": {e.key[:60]: _device_us(e) / 1e3 for e in events[:10]}}
 
 
 def time_e2e(root: str, n_gaussians: int, n_runs: int, profile: bool) -> dict:
@@ -237,7 +327,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--root", default=None,
                     help="checkout whose gs2pc_torch is timed (default: this one)")
     ap.add_argument("--device", default="cuda:0")
-    ap.add_argument("--gaussians", type=int, default=3_000_000)
+    ap.add_argument("--gaussians", type=int, default=3_000_000,
+                    help="the capture scene's size; 0 times the probes alone")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--e2e", type=int, default=0,
                     help="also run the 16-camera conversion this many times")
@@ -257,18 +348,24 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     torch.cuda.set_device(device)
     t0 = time.perf_counter()
     cuda_build.load_library()
+    log = cuda_build.BUILD_INFO.get("log", "")
     rec = {"root": root, "device": torch.cuda.get_device_name(device),
            "build_s": time.perf_counter() - t0,
-           "k1_ptxas": k1_ptxas(cuda_build.BUILD_INFO.get("log", ""))}
-    prep, cfg, modes = camera_inputs(args.gaussians, device)
-    from gs2pc_torch.ops import blend_kernel as B
+           **{f"{k}_ptxas": kernel_ptxas(log, name) for k, name in (
+               ("k1", "blend_tiles_kernel"), ("k3", "probe_op_kernel"),
+               ("k4", "probe_blend_kernel"))}}
+    rec["probes"] = time_probes(device, 10 * args.reps)
+    if args.gaussians:
+        prep, cfg, modes = camera_inputs(args.gaussians, device)
+        from gs2pc_torch.ops import blend_kernel as B
 
-    chunks = B.blend_tiles(*modes["main"][0], **modes["main"][1]).chunks.double()
-    rec["chunks"] = {"mean": float(chunks.mean()),
-                     "p99": float(torch.quantile(chunks, 0.99)), "max": float(chunks.max())}
-    rec["k1"] = time_k1(modes, args.reps)
-    rec["k2"] = time_k2(prep, cfg, args.reps)
-    if args.e2e:
+        chunks = B.blend_tiles(*modes["main"][0], **modes["main"][1]).chunks.double()
+        rec["chunks"] = {"mean": float(chunks.mean()),
+                         "p99": float(torch.quantile(chunks, 0.99)),
+                         "max": float(chunks.max())}
+        rec["k1"] = time_k1(modes, args.reps)
+        rec["k2"] = time_k2(prep, cfg, args.reps)
+    if args.e2e and args.gaussians:
         rec["e2e"] = time_e2e(root, args.gaussians, args.e2e, args.profile)
     line = json.dumps(rec)
     if args.out:

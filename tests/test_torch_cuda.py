@@ -395,6 +395,122 @@ def test_probe_blend_kernel_matches_twin(cuda, kind):
         assert cuda_probe2.compare(level, got, want) <= cuda_probe2.RTOL, level
 
 
+def _k4_inputs(device, counts, x=None, opacity=None, num_tiles=None, masked=(), mask_off=0.1,
+               seed=7):
+    """K4 inputs with one 256-column window per tile (runs of up to 256 pairs):
+    x and opacity (L,) default to the seeded tool input's draws; a share
+    mask_off of the pixels is masked, and every pixel of the tiles in
+    masked."""
+    from gs2pc_torch.ops import probe_kernels as PK
+
+    r = np.random.default_rng(seed)
+    n = len(counts)
+    L = 2 * PK.RS * PK.NTP
+    table = r.uniform(0.0, 1.0, (16, L)).astype(np.float32)
+    table[0] = r.uniform(0.0, 64.0, L) if x is None else x
+    table[5] = r.uniform(0.05, 0.95, L) if opacity is None else opacity
+    mask = (r.uniform(size=(n, PK.TPX, 1)) >= mask_off).astype(np.uint8)
+    for t in masked:
+        mask[t] = 0
+    arrays = (np.arange(n, dtype=np.int32) * 2 * PK.RS, np.asarray(counts, np.int32),
+              np.array([64, 64, n if num_tiles is None else num_tiles, 1], np.int32), table, mask)
+    return tuple(torch.tensor(a, device=device) for a in arrays)
+
+
+def _k4_edge_case(case, device):
+    """(inputs, the (tile, lane) whose apix level 5 must give, its pixel in
+    the tile) for one edge of K4's lane / warp / cluster layout."""
+    from gs2pc_torch.ops import probe_kernels as PK
+
+    L = 2 * PK.RS * PK.NTP
+    if case == "runs":  # chunk and segment edges of the run length
+        return _k4_inputs(device, [1, 31, 32, 33, 127, 129, 128, 255, 256, 0] + [64] * 6), None
+    if case == "stops":
+        # Tile t: lanes below 32 (t % 4) + 5 lie far off; from there on every
+        # x sits on the tile's column 7, so that column's pixels (alpha 0.99)
+        # stop at lane 32 (t % 4) + 7, in segment t % 4, and their neighbours
+        # later.
+        x = np.full(L, -1000.0, np.float32)
+        for t in range(PK.NTP):
+            lanes = np.arange(2 * PK.RS)
+            near = lanes % PK.RS >= 32 * (t % 4) + 5
+            x[t * 2 * PK.RS + lanes[near]] = (t % PK.GRID_W) * 16 + 7
+        return _k4_inputs(device, [2 * PK.RS] * PK.NTP, x=x,
+                          opacity=np.full(L, 0.99, np.float32)), None
+    if case == "ties":
+        # x halfway between columns 7 and 8: pixels 7 and 8 of every row tie
+        # (warps 7 and 0 of a CTA, rows across the cluster's CTAs); the
+        # lowest, pixel 7 of row 0, must win lane 0.
+        x = np.array([(t % PK.GRID_W) * 16 + 7.5 for t in range(PK.NTP)
+                      for _ in range(2 * PK.RS)], np.float32)
+        inputs = _k4_inputs(device, [PK.RS] * PK.NTP, x=x, opacity=np.ones(L, np.float32),
+                            mask_off=0.0)
+        return inputs, (5, 7)
+    if case == "masked":
+        return _k4_inputs(device, [2 * PK.RS] * PK.NTP, masked=(2, 7, 8)), None
+    if case == "few_tiles":
+        return _k4_inputs(device, [200, 256, 77, 256, 128], num_tiles=3, masked=(1,)), None
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["runs", "stops", "ties", "masked", "few_tiles"])
+def test_probe_blend_kernel_edges(cuda, case):
+    """K4 on the edges of its layout -- runs ending on either side of a
+    32-lane segment and a 128-lane chunk, a pixel stopping in each segment,
+    ties of w across warps and CTAs, fully masked tiles, fewer tiles than 16
+    and tiles past num_tiles -- every level held to the twin."""
+    from gs2pc_torch.ops import probe_kernels as PK
+    from gs2pc_torch.tools import cuda_probe2
+
+    inputs, tie = _k4_edge_case(case, cuda)
+    starts, counts, dims, table, mask = inputs
+    outs = {}
+    for level in PK.LEVELS:
+        got = PK.probe_blend(level, *inputs)
+        want = PK.probe_blend_torch(level, *inputs)
+        assert cuda_probe2.compare(level, got, want) <= cuda_probe2.RTOL, level
+        outs[level] = got
+    m = outs[5].m[0].cpu()
+    for t in range(starts.numel()):
+        cols = slice(int(starts[t]), int(starts[t]) + int(counts[t]))
+        dead = (mask[t] == 0).all() or t >= int(dims[2]) or int(counts[t]) == 0
+        # A tile with no valid pixel enters no chunk; the others write m.
+        assert bool(torch.isnan(m[cols]).all()) == dead, t
+    if tie is not None:
+        t, px = tie
+        lane0 = int(starts[t])
+        ty, tx = divmod(t, PK.GRID_W)
+        assert float(m[lane0]) > 0.0
+        assert int(outs[5].apix[0, lane0]) == (ty * 16 + px // 16) * PK.WIDTH_PAD + tx * 16 + px % 16
+    if case == "stops":
+        # The stop fired on every tile: level 3 blends less than level 2.
+        less = outs[2].rgb[..., 1] > outs[3].rgb[..., 1]
+        assert bool(less.any(dim=1).all())
+
+
+@pytest.mark.parametrize("op", ["min", "roll", "scan"])
+def test_probe_op_kernel_exact_on_negative_values(cuda, op):
+    """K3's exact ops on a block of mixed signs equal the twin bit for bit."""
+    from gs2pc_torch.ops import probe_kernels as PK
+
+    x = torch.tensor(np.random.default_rng(4).uniform(-1.5, 1.5, (PK.TPX, PK.RS)).astype(np.float32),
+                     device=cuda)
+    assert torch.equal(PK.probe_op(op, x), PK.probe_op_torch(op, x))
+
+
+def test_probe_op_kernel_takes_an_unaligned_view(cuda):
+    """A block that starts 4 bytes into its storage still runs (the wrapper
+    copies it to 16-byte alignment)."""
+    from gs2pc_torch.ops import probe_kernels as PK
+    from gs2pc_torch.tools import cuda_probe
+
+    big = cuda_probe.make_input("uniform", cuda, seed=6).reshape(-1)
+    x = torch.cat([big, big[:1]])[1:].reshape(PK.TPX, PK.RS)
+    assert x.data_ptr() % 16 != 0
+    for op in PK.EXACT_OPS:
+        assert torch.equal(PK.probe_op(op, x), PK.probe_op_torch(op, x)), op
+
+
 def test_dense_oracle_on_card_matches_cpu(cuda):
     from gs2pc_torch.ops.dense_render import render_dense
 

@@ -142,6 +142,101 @@ def test_seeded_probe_fires_the_stop_and_the_exit():
     assert (no_stop.rgb[..., 1] > got.rgb[..., 1] + 1e-3).sum() > 0
 
 
+def _k4_scan_replay(rows):
+    """probes.cu's lane_scan4 on (n, 128) rows: thread t holds lanes t + 32k
+    (v[:, k, t]); for s < 32 lane j - s is thread (t - s) & 31 of segment k,
+    or of segment k - 1 when t < s (1.0 below segment 0); s = 32 and 64 are
+    the segment one and two below, in the thread, top segment first."""
+    v = rows.reshape(-1, 4, 32).copy()
+    t = np.arange(32)
+    s = 1
+    while s < 32:
+        r = v[:, :, (t - s) & 31]
+        below = np.concatenate([np.ones_like(r[:, :1]), r[:, :-1]], axis=1)
+        v = v * np.where(t >= s, r, below)
+        s *= 2
+    v[:, 3] *= v[:, 2]
+    v[:, 2] *= v[:, 1]
+    v[:, 1] *= v[:, 0]
+    v[:, 3] *= v[:, 1]
+    v[:, 2] *= v[:, 0]
+    return v.reshape(-1, PK.RS)
+
+
+def _k4_sum_replay(rows):
+    """probes.cu's lane_sum4: lanes t + 64 onto t and t + 96 onto t + 32, the
+    two segments' sums, then the xor butterfly; every thread's result."""
+    v = rows.reshape(-1, 4, 32)
+    s = (v[:, 0] + v[:, 2]) + (v[:, 1] + v[:, 3])
+    for off in (16, 8, 4, 2, 1):
+        s = s + s[:, np.arange(32) ^ off]
+    return s
+
+
+def _k3_scan_replay(rows):
+    """probes.cu's row_scan on (n, 128) rows: thread l holds lanes 4l..4l + 3
+    (a[e][:, l]); __shfl_up_sync by d reads thread l - d (its own value
+    below d)."""
+    a = [rows.reshape(-1, 32, 4)[:, :, e].copy() for e in range(4)]
+    lane = np.arange(32)
+
+    def up(x, d):
+        return np.where(lane >= d, np.roll(x, d, axis=1), x)
+
+    one = np.float32(1.0)
+    u = np.where(lane == 0, one, up(a[3], 1))
+    a = [a[0] * u, a[1] * a[0], a[2] * a[1], a[3] * a[2]]
+    u2 = np.where(lane == 0, one, up(a[2], 1))
+    u3 = np.where(lane == 0, one, up(a[3], 1))
+    a = [a[0] * u2, a[1] * u3, a[2] * a[0], a[3] * a[1]]
+    d = 1
+    while d < 32:
+        a = [np.where(lane >= d, x * up(x, d), x) for x in a]
+        d *= 2
+    return np.stack(a, axis=-1).reshape(-1, PK.RS)
+
+
+def _k4_rows(kind):
+    """(1 - a0, w at T = 1, log(1 - a0)) of every pixel of tile 0's first
+    chunk, as the twin computes them at level 2 on the tool's input."""
+    starts, counts, dims, table, mask = cuda_probe2.make_inputs(kind, "cpu", seed=5)
+    lane = torch.arange(PK.RS)
+    px = (torch.arange(PK.TPX) % 16).to(torch.float32)[:, None]
+    dx = px - table[0, lane][None, :]
+    power = -0.5 * dx * dx
+    alpha = torch.clamp(table[5, lane][None, :] * torch.exp(power), max=0.99)
+    ok = (power <= 0) & (alpha >= 1 / 255) & (lane < int(counts[0]))[None, :]
+    a0 = torch.where(ok, alpha, 0.0)
+    excl = torch.where(lane < 1, 1.0, torch.roll(PK._lane_scan(1.0 - a0), 1, dims=-1))
+    return {"1 - a0": 1.0 - a0, "w": a0 * excl, "log(1 - a0)": torch.log(1.0 - a0)}
+
+
+@pytest.mark.parametrize("kind", ["ones", "seeded"])
+def test_k4_lane_mapping_replays_the_twin(kind):
+    """K4's lanes across the warp make the twin's scan multiplications and
+    sum pairs bit for bit on the tool's inputs."""
+    rows = _k4_rows(kind)
+    got = _k4_scan_replay(rows["1 - a0"].numpy())
+    np.testing.assert_array_equal(got, PK._lane_scan(rows["1 - a0"]).numpy())
+    for name in ("w", "log(1 - a0)"):
+        every = _k4_sum_replay(rows[name].numpy())
+        assert (every == every[:, :1]).all(), name
+        np.testing.assert_array_equal(every[:, 0], PK._lane_sum(rows[name]).numpy())
+    assert (rows["1 - a0"] < 1).sum() > 100  # the scan multiplies something
+
+
+@pytest.mark.parametrize("kind", ["ones", "uniform", "signed"])
+def test_k3_row_scan_mapping_replays_the_twin(kind):
+    """K3's float4-per-thread scan makes k_scan_fwd's multiplications bit
+    for bit."""
+    if kind == "signed":
+        x = np.random.default_rng(4).uniform(-1.5, 1.5, (PK.TPX, PK.RS)).astype(np.float32)
+    else:
+        x = cuda_probe.make_input(kind, "cpu", seed=11).numpy()
+    np.testing.assert_array_equal(_k3_scan_replay(x), PK._lane_scan(torch.tensor(x)).numpy())
+    np.testing.assert_array_equal(_k4_scan_replay(x), PK._lane_scan(torch.tensor(x)).numpy())
+
+
 @pytest.mark.parametrize("tool,n_lines", [(cuda_probe, 9), (cuda_probe2, 7)])
 def test_probe_tools_print_one_ok_line_per_case(tool, n_lines, capsys):
     res = tool.main(["--device", "cpu"])
