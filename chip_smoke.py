@@ -7,8 +7,8 @@ multi-device sweeps at full width, and checks what they produce.
 
 Phases (each prints one line or more; any failure exits non-zero):
   1. device    nvidia-smi name and power limit, torch's device name
-  2. build     nvcc build + load of gs2pc_torch/csrc/*.cu, g++ build of the
-               PLY writer
+  2. build     nvcc build + load of gs2pc_torch/csrc/*.cu, g++ builds of the
+               PLY writer and the mesher
   3. K2        pair expansion vs twin: 200k Gaussians, one 1280x720 camera,
                keys and gids equal exactly before and after the sort
                (full-rect and circle-cull modes)
@@ -49,6 +49,24 @@ Phases (each prints one line or more; any failure exits non-zero):
  12. dense CLI gs2pc_torch.cli.main --renderer_type dense --profile_dir on a
                20k-Gaussian capture (4 cameras at 256x192, masks): points,
                writer, the trace and its phases, colours against the tile CLI
+ 13. SH        the e2e scene written as a degree-3 SH export (59 floats a
+               Gaussian) -> the CLI with --sh_colour_eval --save_sweep over
+               the 16 cameras, 10M points; colours other than the DC ones;
+               K1 bit-equal to its twin on a per-camera SH table (20k
+               Gaussians at 256x192)
+ 14. resume    the saved sweep loaded (equal to the saved accumulators bit
+               for bit) and the conversion run again from it without
+               transforms: the same PLY, byte for byte
+ 15. mesh      BASELINE config 5: --clean_pointcloud --generate_mesh at the
+               defaults (depth 10 -> grid 384, 10 smoothing rounds), 16
+               cameras, 10M points: the surface quota, the native mesher,
+               each step's time; statistical_outlier_mask on the card
+               against the CPU on 200k surface points
+ 16. capacity  --auto_capacity with 4 cameras at --max_pairs_per_tile 256:
+               K1 launches = cameras x attempts, the final run cap and drop
+               share
+ 17. covariances Gaussians.from_covariances on 1M seeded covariances, half
+               not PSD, on the card against the CPU
 The line before the last is the kernels' JSON record (max_abs_err at the
 shape of phases 7-8 and 10; ms the time through the wrapper, also given as
 wrapper_ms, and launch_ms the launch alone, K2's count + write; K3 as the
@@ -126,6 +144,26 @@ PSNR_FLOOR_DB = 40.0
 N_DENSE_CLI_GAUSSIANS = 20_000
 N_DENSE_CLI_CAMERAS = 4
 DENSE_CLI_WIDTH, DENSE_CLI_HEIGHT = 256, 192
+
+# The feature-flag phases (13-17).  SH: the e2e scene as a degree-3 SH
+# export, f_rest ~ N(0, 0.02) as tests/fixture_scene.py:123.
+SH_REST_STD = 0.02
+N_SH_K1_GAUSSIANS = 20_000
+# --auto_capacity: 4 cameras at a run cap the capture's tiles overflow.
+N_AUTO_CAMERAS = 4
+AUTO_RUN_CAP = 256
+N_AUTO_POINTS = 1_000_000
+# The outlier mask on the card against the CPU: masks equal except for
+# points whose mean kNN distance lies within 1e-6 relative of the threshold.
+N_OUTLIER_CHECK = 200_000
+OUTLIER_NEAR_RTOL = 1e-6
+# from_covariances on the card against the CPU (it repairs in float64, so
+# the keep masks do not follow either device's rounding).
+N_COVARIANCES = 1_000_000
+COV_RTOL = 1e-5
+MESH_PHASES = ("clean_pointcloud", "surface_sampling", "mesh_outliers", "mesh_density_grid",
+               "mesh_iso_level", "mesh_marching_tetrahedra", "mesh_smooth", "mesh_attributes",
+               "mesh_write")
 
 # K1's modes as they appear in the kernels record: blend_kernel.mode_of name.
 K1_MODES = ("early_stop=False", "init_trans", "ed_override")
@@ -404,12 +442,33 @@ def check_cloud(result, out: str, label: str) -> int:
     return n_file
 
 
+def reset_launches() -> None:
+    from gs2pc_torch.ops import blend_kernel as B
+    from gs2pc_torch.ops import rasterize as R
+
+    B.blend_tiles.launches = 0
+    R.duplicate_with_keys.launches = 0
+
+
+def read_launches() -> dict:
+    from gs2pc_torch.ops import blend_kernel as B
+    from gs2pc_torch.ops import rasterize as R
+
+    return {"blend_tiles": B.blend_tiles.launches,
+            "duplicate_with_keys": R.duplicate_with_keys.launches}
+
+
+def e2e_argv(ply, tj, mask_dir, out, n_points=None):
+    return ["--input_path", ply, "--transform_path", tj, "--mask_path", mask_dir,
+            "--output_path", out, "--num_points", str(n_points or N_POINTS), "--seed", "0",
+            "--quiet"]
+
+
 def phase_e2e(device, work):
     import torch
 
     from gs2pc_torch import cli
     from gs2pc_torch.ops import blend_kernel as B
-    from gs2pc_torch.ops import rasterize as R
     from gs2pc_torch.utils import capture, log
 
     t0 = time.perf_counter()
@@ -420,22 +479,16 @@ def phase_e2e(device, work):
           f"({N_E2E_GAUSSIANS} Gaussians, {N_E2E_CAMERAS} cameras)", flush=True)
 
     def argv(out):
-        return [
-            "--input_path", ply, "--transform_path", tj, "--mask_path", mask_dir,
-            "--output_path", out, "--num_points", str(N_POINTS),
-            "--surface_distance_std", "1e6", "--seed", "0", "--quiet",
-        ]
+        return e2e_argv(ply, tj, mask_dir, out) + ["--surface_distance_std", "1e6"]
 
     out = os.path.join(work, "cloud.ply")
 
     log.reset_phases()
-    B.blend_tiles.launches = 0
-    R.duplicate_with_keys.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     result = cli.main(argv(out))
     wall = time.perf_counter() - t0
-    launches = {"blend_tiles": B.blend_tiles.launches,
-                "duplicate_with_keys": R.duplicate_with_keys.launches}
+    launches = read_launches()
 
     want = {"blend_tiles": N_E2E_CAMERAS, "duplicate_with_keys": 2 * N_E2E_CAMERAS}
     if launches != want:
@@ -468,7 +521,8 @@ def phase_e2e(device, work):
               f"{wall_n:.2f}s; counters {res_n.sweep_diag}", flush=True)
     else:
         print("e2e on more than one card: skipped, this machine has one card", flush=True)
-    return arrays, launches
+    os.remove(out)
+    return arrays, launches, dict(ply=ply, tj=tj, masks=mask_dir, cols_u8=result.cloud.cols_u8)
 
 
 def k1_share(ms: float, bound) -> str:
@@ -972,6 +1026,312 @@ def phase_dense_cli(device, work):
     return share
 
 
+def sh_coefficients(arrays, seed: int):
+    """Degree-3 SH of a capture scene: f_dc carries its colours, f_rest ~
+    N(0, SH_REST_STD) (channel-major, as the loader reshapes them)."""
+    import numpy as np
+
+    from gs2pc_torch.ops.sh import SH_C0
+
+    n = arrays.xyz.shape[0]
+    f_dc = ((arrays.colours - 0.5) / SH_C0).astype(np.float32)
+    f_rest = np.random.default_rng(seed).normal(scale=SH_REST_STD, size=(n, 3, 15))
+    return f_dc, f_rest.astype(np.float32)
+
+
+def write_sh_ply(path: str, arrays, f_dc, f_rest) -> None:
+    """A trained 3DGS export's layout, 59 floats a Gaussian: x y z,
+    f_dc_0..2, f_rest_0..44, opacity (logit), scale_0..2, rot_0..3."""
+    import numpy as np
+
+    n = arrays.xyz.shape[0]
+    op = np.clip(arrays.opacities.astype(np.float32), 1e-6, 1 - 1e-6)
+    props = (["x", "y", "z"] + [f"f_dc_{i}" for i in range(3)]
+             + [f"f_rest_{i}" for i in range(45)] + ["opacity"]
+             + [f"scale_{i}" for i in range(3)] + [f"rot_{i}" for i in range(4)])
+    header = ("ply\nformat binary_little_endian 1.0\n" f"element vertex {n}\n"
+              + "".join(f"property float {p}\n" for p in props) + "end_header\n")
+    rows = np.concatenate([
+        arrays.xyz, f_dc, f_rest.reshape(n, 45), np.log(op / (1.0 - op))[:, None],
+        arrays.log_scales, arrays.rots,
+    ], axis=1).astype("<f4")
+    with open(path, "wb") as fh:
+        fh.write(header.encode("ascii"))
+        fh.write(rows.tobytes())
+
+
+def files_equal(a: str, b: str) -> bool:
+    import filecmp
+
+    return filecmp.cmp(a, b, shallow=False)
+
+
+def phase_sh(device, work, arrays, plain_cols, tj, mask_dir):
+    """The CLI with --sh_colour_eval --save_sweep on the e2e scene as an SH
+    export, then the saved sweep resumed without transforms."""
+    import torch
+
+    from gs2pc_torch import cli, pipeline
+    from gs2pc_torch.io.ply import save_point_cloud_ply
+    from gs2pc_torch.utils import log
+    from gs2pc_torch.utils.checkpoint import load_accumulators
+    from gs2pc_torch.utils.config import parse_args, settings_from_args
+
+    t0 = time.perf_counter()
+    ply = os.path.join(work, "scene_sh.ply")
+    write_sh_ply(ply, arrays, *sh_coefficients(arrays, seed=6))
+    print(f"SH capture written in {time.perf_counter() - t0:.1f}s ({os.path.getsize(ply)} bytes, "
+          f"{N_E2E_GAUSSIANS} Gaussians of degree 3)", flush=True)
+    out, sweep = os.path.join(work, "cloud_sh.ply"), os.path.join(work, "sweep.npz")
+    argv = e2e_argv(ply, tj, mask_dir, out) + [
+        "--surface_distance_std", "1e6", "--sh_colour_eval", "--save_sweep", sweep]
+    saved = []
+    real_save = pipeline.save_accumulators
+
+    def keep_saved(path, acc, *a, **kw):
+        saved.append(acc)
+        return real_save(path, acc, *a, **kw)
+
+    log.reset_phases()
+    reset_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(pipeline, "save_accumulators", keep_saved):
+        result = cli.main(argv)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = {"blend_tiles": N_E2E_CAMERAS, "duplicate_with_keys": 2 * N_E2E_CAMERAS}
+    if launches != want:
+        fail(f"SH conversion: kernel launches {launches}, expected {want}")
+    n_file = check_cloud(result, out, "SH conversion")
+    if abs(n_file - N_POINTS) > 0.01 * N_POINTS:
+        fail(f"SH conversion: {n_file} points written for a budget of {N_POINTS}")
+    zmax = mahalanobis_max(result.cloud, arrays)
+    if zmax > 2.0 + 1e-3:
+        fail(f"SH conversion: a sampled point lies {zmax} deviations from its Gaussian")
+    moved = int((result.cloud.cols_u8 != plain_cols).any(axis=1).sum())
+    if moved == 0:
+        fail("SH conversion: the colours equal the degree-0 conversion's everywhere")
+    phases = {k: round(v, 3) for k, v in log.PHASE_SECONDS.items()}
+    print(f"SH conversion (--sh_colour_eval, {N_E2E_CAMERAS} cameras at {E2E_WIDTH}x"
+          f"{E2E_HEIGHT}, masks): {n_file} points in {wall:.2f}s; scene_parse "
+          f"{phases['scene_parse']:.3f}s, scene_upload {phases['scene_upload']:.3f}s, "
+          f"render_sweep {phases['render_sweep']:.3f}s, save_sweep {phases['save_sweep']:.3f}s; "
+          f"launches {launches}; u8 colour other than the degree-0 conversion's on {moved} of "
+          f"{len(plain_cols)} Gaussians; counters {result.sweep_diag}; max sampled |z| "
+          f"{zmax:.4f}; phases {json.dumps(phases)}", flush=True)
+
+    # Resume: the saved sweep, no transforms, no masks.
+    if len(saved) != 1:
+        fail(f"--save_sweep saved {len(saved)} sweeps")
+    loaded = load_accumulators(sweep, N_E2E_GAUSSIANS, scene_xyz=arrays.xyz, device=device)
+    for name in ("max_contribution", "colours", "total_contribution", "min_surface_distance"):
+        if not torch.equal(getattr(loaded, name), getattr(saved[0], name)):
+            fail(f"the loaded sweep's {name} differs from the saved one")
+    settings = settings_from_args(parse_args(argv))._replace(save_sweep=None, load_sweep=sweep)
+    out2 = os.path.join(work, "cloud_resumed.ply")
+    log.reset_phases()
+    reset_launches()
+    t0 = time.perf_counter()
+    res2 = pipeline.convert_3dgs_to_pc(ply, None, None, settings, device=device)
+    writer = save_point_cloud_ply(res2.cloud, out2)
+    wall2 = time.perf_counter() - t0
+    if read_launches()["blend_tiles"] != 0 or res2.sweep_diag is not None:
+        fail("the resumed conversion rendered")
+    same = files_equal(out, out2)
+    print(f"resume (--load_sweep, no transforms): accumulators equal the saved ones bit for "
+          f"bit; {res2.cloud.total} points in {wall2:.2f}s ({writer} writer), load_sweep "
+          f"{log.PHASE_SECONDS['load_sweep']:.3f}s ({os.path.getsize(sweep)} bytes); PLY equal "
+          f"to the first byte for byte: {same}", flush=True)
+    if not same:
+        fail("the resumed conversion wrote another PLY")
+    for path in (out, out2, ply, sweep):
+        os.remove(path)
+    return dict(wall=wall, phases=phases, launches=launches)
+
+
+def phase_k1_sh(device):
+    """K1 against its twin, bit for bit, on a table whose colours are one
+    camera's view of the scene's SH."""
+    import dataclasses
+
+    import torch
+
+    from gs2pc_torch.ops import blend_kernel as B
+    from gs2pc_torch.ops.rasterize import TileConfig
+    from gs2pc_torch.ops.sh import view_colours
+    from gs2pc_torch.utils import capture
+
+    arrays = capture.make_scene_arrays(N_SH_K1_GAUSSIANS, seed=2)
+    f_dc, f_rest = sh_coefficients(arrays, seed=7)
+    coeffs = torch.cat([torch.tensor(f_dc)[:, :, None], torch.tensor(f_rest)], dim=2).to(device)
+    g = scene_on_device(arrays, device)
+    cams = camera_batch(1, 256, 192, device, with_masks=True)
+    cam = cams.at(0)
+    g = dataclasses.replace(g, colours=view_colours(3, coeffs, g.xyz, cam.campos))
+    cfg = TileConfig(width_pad=cams.width_pad, height_pad=cams.height_pad, compact=True,
+                     surface_compact=True)
+    _, args, kw = blend_inputs(g, cam, cfg)
+    k = B.blend_tiles(*args, **kw)
+    t = B.blend_tiles_torch(*args, **kw)
+    torch.cuda.synchronize()
+    err = compare_k1(k, t, f"{N_SH_K1_GAUSSIANS} Gaussians 256x192, the SH colours of camera 0")
+    if err != 0.0 or not torch.equal(k.best_pix, t.best_pix):
+        fail(f"K1 on the SH table is not bit-equal to its twin (max |err| {err})")
+
+
+def phase_mesh(device, work, ply, tj, mask_dir):
+    """BASELINE config 5 at full width: --clean_pointcloud --generate_mesh
+    with the default depth and smoothing."""
+    import numpy as np
+    import torch
+
+    from gs2pc_torch import cli, meshing
+    from gs2pc_torch.io.ply import read_ply
+    from gs2pc_torch.utils import log
+
+    out, mesh_out = os.path.join(work, "cloud_mesh.ply"), os.path.join(work, "mesh.ply")
+    totals = []
+    real_clean = cli.clean_point_cloud
+
+    def count_clean(cloud, **kw):
+        totals.append(cloud.total)
+        return real_clean(cloud, **kw)
+
+    log.reset_phases()
+    reset_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(cli, "clean_point_cloud", count_clean):
+        result = cli.main(e2e_argv(ply, tj, mask_dir, out) + [
+            "--clean_pointcloud", "--generate_mesh", "--mesh_output_path", mesh_out])
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = {"blend_tiles": N_E2E_CAMERAS, "duplicate_with_keys": 2 * N_E2E_CAMERAS}
+    if launches != want:
+        fail(f"mesh conversion: kernel launches {launches}, expected {want}")
+    n_file = check_cloud(result, out, "mesh conversion (cleaned cloud)")
+    n_surface, n_mesh = result.surface_quota
+    want_mesh = min(N_POINTS // 2, n_surface * 25)
+    if n_mesh != want_mesh or n_surface == 0:
+        fail(f"surface quota {n_mesh} for {n_surface} surface Gaussians, expected {want_mesh}")
+    mesh = result.mesh
+    if mesh.mesher != "native":
+        fail(f"the mesh came from the {mesh.mesher} mesher, not the native one")
+    if len(mesh.faces) == 0 or not np.isfinite(mesh.verts).all():
+        fail(f"empty or non-finite mesh: {len(mesh.verts)} vertices, {len(mesh.faces)} faces")
+    elements = read_ply(mesh_out)
+    if (elements["vertex"].count, elements["face"].count) != (len(mesh.verts), len(mesh.faces)):
+        fail("the mesh PLY holds other counts than the mesh")
+    phases = {k: round(log.PHASE_SECONDS.get(k, 0.0), 3) for k in MESH_PHASES}
+    print(f"mesh conversion (BASELINE config 5: --clean_pointcloud --generate_mesh, depth 10 -> "
+          f"grid 384, 10 smoothing rounds; {N_E2E_CAMERAS} cameras, {N_POINTS} points) in "
+          f"{wall:.2f}s: cleaning kept {n_file} of {totals[0]} points; surface quota {n_mesh} "
+          f"points for {n_surface} surface Gaussians (min(N // 2, 25 x count)); surface cloud "
+          f"{result.surface_cloud.total} points, {mesh.points} after outlier removal; mesh "
+          f"{len(mesh.verts)} vertices, {len(mesh.faces)} faces ({mesh.mesher} mesher); launches "
+          f"{launches}; render_sweep {log.PHASE_SECONDS['render_sweep']:.3f}s; steps "
+          f"{json.dumps(phases)}", flush=True)
+
+    # The outlier mask on the card against the CPU, on 200k surface points.
+    surf = result.surface_cloud.points
+    pts = surf[np.random.default_rng(0).choice(len(surf), size=min(N_OUTLIER_CHECK, len(surf)),
+                                                replace=False)]
+    on_card = meshing.statistical_outlier_mask(torch.tensor(pts, device=device), std_ratio=3.0)
+    on_cpu = meshing.statistical_outlier_mask(torch.tensor(pts), std_ratio=3.0)
+    d = meshing.knn_mean_distance(torch.tensor(pts)).double()
+    thr = d.mean() + 3.0 * d.std(correction=0)
+    near = (d - thr).abs() <= OUTLIER_NEAR_RTOL * thr
+    off = int((on_card.cpu() != on_cpu)[~near].sum())
+    print(f"outlier mask, {len(pts)} surface points, std_ratio 3: card vs CPU differ on {off} "
+          f"points away from the threshold; {int(near.sum())} within {OUTLIER_NEAR_RTOL:g} "
+          f"relative of it; {int((~on_cpu).sum())} outliers", flush=True)
+    if off:
+        fail(f"the outlier mask on the card differs from the CPU's on {off} points")
+    for path in (out, mesh_out):
+        os.remove(path)
+    return dict(wall=wall, phases=phases, launches=launches)
+
+
+def phase_auto_capacity(device, work, ply, tj, mask_dir):
+    """--auto_capacity on the first cameras of the capture at a run cap
+    their tiles overflow: the sweep re-renders with the cap doubled."""
+    from gs2pc_torch import cli
+    from gs2pc_torch.pipeline import AUTO_CAPACITY_ATTEMPTS, truncation_material
+
+    with open(tj) as fh:
+        frames = json.load(fh)["frames"][:N_AUTO_CAMERAS]
+    n_cams = len(frames)
+    tj4 = os.path.join(work, "transforms_4.json")
+    with open(tj4, "w") as fh:
+        json.dump({"frames": frames}, fh)
+    out = os.path.join(work, "cloud_auto.ply")
+    reset_launches()
+    t0 = time.perf_counter()
+    result = cli.main(e2e_argv(ply, tj4, mask_dir, out, N_AUTO_POINTS) + [
+        "--surface_distance_std", "1e6", "--max_pairs_per_tile", str(AUTO_RUN_CAP),
+        "--auto_capacity"])
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    attempts, rest = divmod(launches["blend_tiles"], n_cams)
+    _, material = truncation_material(result.sweep_diag)
+    pairs, _, cap_drop, cap_live = result.sweep_diag
+    final_cap = AUTO_RUN_CAP << (attempts - 1)
+    print(f"--auto_capacity, {n_cams} cameras, --max_pairs_per_tile {AUTO_RUN_CAP}: "
+          f"{attempts} sweeps (K1 launches {launches['blend_tiles']} = {n_cams} cameras x "
+          f"{attempts}), final run cap {final_cap}; final sweep {pairs:,.0f} pairs blended, "
+          f"{cap_drop:,.0f} beyond the cap, {cap_live:,.0f} on live tiles "
+          f"({100.0 * cap_live / max(pairs, 1.0):.3f}%, material: {material}); "
+          f"{result.cloud.total} points in {wall:.2f}s", flush=True)
+    if rest or not 2 <= attempts <= AUTO_CAPACITY_ATTEMPTS:
+        fail(f"--auto_capacity ran {launches['blend_tiles']} K1 launches on {n_cams} "
+             "cameras: expected 2 or 3 sweeps")
+    if material and attempts < AUTO_CAPACITY_ATTEMPTS:
+        fail("--auto_capacity stopped while the drops were still material")
+    check_cloud(result, out, "--auto_capacity conversion")
+    os.remove(out)
+    return dict(attempts=attempts, final_cap=final_cap, launches=launches)
+
+
+def phase_covariances(device):
+    """Gaussians.from_covariances on the card against the CPU: 1M seeded
+    covariances at 3DGS scales, every other one not PSD."""
+    import numpy as np
+    import torch
+
+    from gs2pc_torch.models.gaussians import Gaussians
+    from gs2pc_torch.ops.linalg3 import bmm33_nt
+    from gs2pc_torch.ops.quaternion import quat_to_rotmat
+
+    n = N_COVARIANCES
+    r = np.random.default_rng(12)
+    q = r.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    rot = quat_to_rotmat(torch.tensor(q)).numpy()
+    lam = np.sort(np.exp(2.0 * r.uniform(-5.0, -2.0, (n, 3))), axis=1)
+    lam[::2, 0] = -r.uniform(1e-6, 1e-3, n // 2)
+    sigma = np.einsum("nij,nj,nkj->nik", rot, lam, rot).astype(np.float32)
+    xyz = r.normal(size=(n, 3)).astype(np.float32)
+    cols, opac = r.uniform(size=(n, 3)).astype(np.float32), r.uniform(size=n).astype(np.float32)
+    out, secs = [], []
+    for dev in ("cpu", device):
+        t0 = time.perf_counter()
+        g = Gaussians.from_covariances(xyz, sigma, cols, opac, device=dev)
+        M = g.covariance_factors()
+        cov, keep = bmm33_nt(M, M).cpu(), g.keep_mask.cpu()
+        secs.append(time.perf_counter() - t0)
+        out.append((cov, keep))
+    scale = out[0][0].abs().amax(dim=(1, 2), keepdim=True)
+    rel = float(((out[1][0] - out[0][0]).abs() / scale).max())
+    differ = int((out[1][1] != out[0][1]).sum())
+    print(f"from_covariances: {n} covariances ({n // 2} not PSD), card {secs[1]:.3f}s vs CPU "
+          f"{secs[0]:.3f}s: Sigma within {rel:.3g} relative of the largest entry (<= "
+          f"{COV_RTOL:g}); kept {int(out[1][1].sum())} on the card, {int(out[0][1].sum())} on "
+          f"the CPU; keep masks differ on {differ} rows", flush=True)
+    if not rel <= COV_RTOL:
+        fail(f"from_covariances: Sigma on the card off by {rel} relative")
+    if differ:
+        fail(f"from_covariances: keep masks differ on {differ} rows")
+
+
 def main() -> int:
     import torch
 
@@ -1001,15 +1361,25 @@ def main() -> int:
         fail(f"the PLY writer did not build: {cuda_build.PLYIO_INFO.get('error')}")
     print(f"build: PLY writer {time.perf_counter() - t0:.1f}s -> "
           f"{cuda_build.PLYIO_INFO['path']}", flush=True)
+    t0 = time.perf_counter()
+    if cuda_build.load_mesher() is None:
+        fail(f"the mesher did not build: {cuda_build.MESHER_INFO.get('error')}")
+    print(f"build: mesher {time.perf_counter() - t0:.1f}s -> {cuda_build.MESHER_INFO['path']}",
+          flush=True)
 
     probe_launches, k3, k4 = phase_probes(device)
     phase_k2(device)
     phase_k1(device)
+    phase_k1_sh(device)
     work = os.path.join(REPO, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     try:
-        arrays, launches = phase_e2e(device, work)
+        arrays, launches, e2e = phase_e2e(device, work)
+        files = (e2e["tj"], e2e["masks"])
+        phase_sh(device, work, arrays, e2e["cols_u8"], *files)
+        phase_mesh(device, work, e2e["ply"], *files)
+        phase_auto_capacity(device, work, e2e["ply"], *files)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     ms, bounds, k1_err = phase_timing(device, arrays)
@@ -1024,6 +1394,7 @@ def main() -> int:
         phase_dense_cli(device, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    phase_covariances(device)
 
     def entry(name, source, replaces, n, err, t, plain, bound, launch=None, library=None):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

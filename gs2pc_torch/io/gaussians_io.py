@@ -26,10 +26,12 @@ def _sorted_props(names, prefix):
 
 
 def load_ply_gaussians(path: str, max_sh_degree: int = 3):
-    """3DGS .ply -> host arrays (xyz, log_scales, rots, colours, opacities),
-    with the same rules as gs2pc.io.ply.load_ply_gaussians: sigmoid
+    """3DGS .ply -> host arrays (xyz, log_scales, rots, colours, opacities,
+    shs), with the same rules as gs2pc.io.ply.load_ply_gaussians: sigmoid
     opacities, degree-0 SH colours (or RGB with /255 autodetect), unit
-    quaternions sign-normalised to w >= 0."""
+    quaternions sign-normalised to w >= 0, and the full SH coefficients
+    (P, 3, (max_sh_degree + 1)^2) of an SH scene (None for RGB colours):
+    f_dc first, then the f_rest_j sorted by their number, channel-major."""
     vertex = next(iter(read_ply(path).values()))
     names = vertex.property_names
     props = set(names)
@@ -42,12 +44,11 @@ def load_ply_gaussians(path: str, max_sh_degree: int = 3):
     else:
         opacities = np.ones(n, np.float32)
 
+    shs = None
     if "f_dc_0" in props:
         f_dc = np.stack(
             [vertex["f_dc_0"], vertex["f_dc_1"], vertex["f_dc_2"]], axis=1
         ).astype(np.float32)
-        # The f_rest_* columns are checked but not read: view-dependent SH
-        # colours are not ported (ROADMAP "Still to port" 2).
         rest = _sorted_props(names, "f_rest_")
         expected = 3 * (max_sh_degree + 1) ** 2 - 3
         if len(rest) != expected:
@@ -55,6 +56,12 @@ def load_ply_gaussians(path: str, max_sh_degree: int = 3):
                 f"Expected {expected} f_rest_* properties for sh degree "
                 f"{max_sh_degree}, found {len(rest)}"
             )
+        if rest:
+            f_rest = np.stack([vertex[p] for p in rest], axis=1).astype(np.float32)
+            f_rest = f_rest.reshape(n, 3, (max_sh_degree + 1) ** 2 - 1)
+            shs = np.concatenate([f_dc[:, :, None], f_rest], axis=2)
+        else:
+            shs = f_dc[:, :, None]
         colours = np.clip(SH_C0 * f_dc + 0.5, 0.0, 1.0).astype(np.float32)
     elif "red" in props:
         colours = np.stack(
@@ -81,7 +88,7 @@ def load_ply_gaussians(path: str, max_sh_degree: int = 3):
         rots = np.where(rots[:, :1] < 0.0, -rots, rots)
     else:
         rots = np.tile(np.array([[1, 0, 0, 0]], np.float32), (n, 1))
-    return xyz, log_scales, rots, colours, opacities
+    return xyz, log_scales, rots, colours, opacities, shs
 
 
 def quantise_colours_u8(colours: np.ndarray) -> np.ndarray:
@@ -93,22 +100,26 @@ def quantise_colours_u8(colours: np.ndarray) -> np.ndarray:
 
 
 def load_gaussians(
-    input_path: str, max_sh_degree: int = 3, compact_colours: bool = False, *, device
+    input_path: str, max_sh_degree: int = 3, compact_colours: bool = False,
+    with_shs: bool = False, *, device
 ) -> Gaussians:
     """Load a .ply or .splat scene onto ``device``.
 
     With ``compact_colours`` the colour plane is quantised to 8 bits per
-    channel before the upload, as in the JAX loader."""
+    channel before the upload, as in the JAX loader.  The SH coefficients
+    of an SH scene are uploaded only ``with_shs`` (--sh_colour_eval): a
+    degree-3 scene of 3M Gaussians carries 576 MB of them."""
     ext = os.path.splitext(input_path)[1]
     with log.phase("scene_parse"):
         if ext == ".splat":
-            arrays = load_splat_gaussians(input_path)[:5]  # its SH slot is None
+            arrays = load_splat_gaussians(input_path)  # its SH slot is None
         elif ext == ".ply":
             arrays = load_ply_gaussians(input_path, max_sh_degree=max_sh_degree)
         else:
             raise ValueError(f"Unsupported input type {ext}")
-    xyz, log_scales, rots, colours, opacities = arrays
+    xyz, log_scales, rots, colours, opacities, shs = arrays
     if compact_colours:
         colours = quantise_colours_u8(colours)
     with log.phase("scene_upload"):
-        return Gaussians.from_numpy(xyz, log_scales, rots, colours, opacities, device=device)
+        return Gaussians.from_numpy(xyz, log_scales, rots, colours, opacities,
+                                    shs=shs if with_shs else None, device=device)

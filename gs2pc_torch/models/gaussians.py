@@ -89,6 +89,54 @@ class Gaussians:
             keep_mask=conv(g.keep_mask, bool),
         )
 
+    @staticmethod
+    def from_covariances(
+        xyz, covariances, colours, opacities, shs=None, validate: bool = True, *, device
+    ) -> "Gaussians":
+        """A scene from dense 3x3 covariances that did not come from factors
+        (gs2pc.models.gaussians.Gaussians.from_covariances): with
+        ``validate`` they first go through the matrix-space repair
+        (ops/covariance.py), and the rows that stay non-PSD are culled in
+        ``keep_mask``; then one batched ``eigh`` refactors each,
+        Sigma = V diag(l) V^T -> log_scales = 0.5 log(l), rots = quat(V)
+        with V made a proper rotation, so the factors give Sigma back.
+
+        The repair and the refactoring run in float64 (the JAX package's in
+        float32).  The repair clamps eigenvalues to 1e-7 and keeps a row when
+        the closed-form smallest eigenvalue exceeds 1e-8; in float32 the
+        recompose and the closed form carry errors of tens of ulps of the
+        largest eigenvalue, as large as that gap at 3DGS scales, so the keep
+        mask of a clamped row would follow the device's rounding (9 rows of
+        1M differed between an H100 and the CPU)."""
+        from gs2pc_torch.ops.covariance import eigh3, validate_covariance_matrices
+        from gs2pc_torch.ops.quaternion import rotmat_to_quat
+
+        def f32(x):
+            return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+        covs = f32(covariances).double()
+        if validate:
+            covs, keep = validate_covariance_matrices(covs)
+        else:
+            keep = torch.ones(covs.shape[0], dtype=torch.bool, device=device)
+        eigvals, eigvecs = eigh3(covs)  # ascending, orthonormal V
+        eigvals = torch.clamp(eigvals, min=1e-12)
+        # eigh may return a left-handed basis: flip one column so V is a
+        # rotation before the quaternion conversion.
+        det = torch.linalg.det(eigvecs)
+        flip = torch.stack([torch.ones_like(det), torch.ones_like(det), torch.sign(det)], dim=-1)
+        eigvecs = eigvecs * flip[..., None, :]
+        return Gaussians(
+            xyz=f32(xyz),
+            log_scales=(0.5 * torch.log(eigvals)).float(),
+            rots=rotmat_to_quat(eigvecs).float(),
+            opacities=f32(opacities).reshape(-1),
+            colours=f32(colours),
+            shs=None if shs is None else f32(shs),
+            normals=None,
+            keep_mask=keep,
+        )
+
     @property
     def num_gaussians(self) -> int:
         return self.xyz.shape[0]
@@ -165,3 +213,11 @@ class Gaussians:
         ranks = torch.empty_like(order)
         ranks[order] = torch.arange(order.shape[0], device=order.device)
         return self.add_to_cull(ranks < cull_index)
+
+    def apply_knn_filter(self, k: int = 10, max_dist: float = 1.0, window: int = 32) -> "Gaussians":
+        """Cull Gaussians whose mean distance to ~k nearest neighbours
+        exceeds ``max_dist`` (the Morton-window kNN of gs2pc_torch.meshing)."""
+        from gs2pc_torch.meshing import knn_mean_distance
+
+        mean_d = knn_mean_distance(self.xyz, k=k, window=window)
+        return self.add_to_cull(mean_d <= max_dist)

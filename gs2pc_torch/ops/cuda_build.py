@@ -1,15 +1,17 @@
 """Build and load the package's native code: the CUDA kernels
-(gs2pc_torch/csrc/*.cu, ``nvcc``) and the host PLY expand-writer
-(gs2pc_torch/csrc/plyio.cpp, ``g++``).
+(gs2pc_torch/csrc/*.cu, ``nvcc``) and the host libraries, the PLY
+expand-writer (gs2pc_torch/csrc/plyio.cpp) and the marching-tetrahedra
+mesher (gs2pc_torch/csrc/mesher.cpp), each built with ``g++``.
 
 Each is compiled on first use into a shared library with a plain C
 interface under ``build/gs2pc_torch/`` of the checkout (named by a hash of
 its sources and flags, so an edited source is rebuilt) and loaded with
 ``ctypes``.  Nothing here runs at import time: a machine without ``nvcc``
 or a card imports the package and uses the PyTorch twins on CPU tensors.
-The kernels have no fallback: a failed ``nvcc`` build raises.  The PLY
-writer has one: without ``g++``, or when its build fails, ``load_plyio``
-returns None and gs2pc_torch.io.ply writes with numpy.
+The kernels have no fallback: a failed ``nvcc`` build raises.  The host
+libraries have one: without ``g++``, or when a build fails, ``load_plyio``
+/ ``load_mesher`` return None and numpy does the work
+(gs2pc_torch.io.ply, gs2pc_torch.meshing_native).
 """
 
 from __future__ import annotations
@@ -32,13 +34,14 @@ GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"]
 
 _LOCK = threading.Lock()
 _LIB = None
-_PLYIO = None
-_PLYIO_TRIED = False
 # The loaded kernel library's path and the compiler's register /
 # shared-memory report ("" when the library was already built).
 BUILD_INFO: dict = {}
-# The PLY writer's library path, or the reason it is not loaded.
+# Each host library's path, or the reason it is not loaded.
 PLYIO_INFO: dict = {}
+MESHER_INFO: dict = {}
+# Host libraries by source: the loaded library, or None once a load failed.
+_HOST_LIBS: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -111,39 +114,69 @@ def load_library() -> ctypes.CDLL:
         return lib
 
 
-def load_plyio() -> ctypes.CDLL | None:
-    """Build (once per source version) and load the PLY expand-writer, or
-    None when there is no ``g++`` or the build fails (PLYIO_INFO says
-    which)."""
-    global _PLYIO, _PLYIO_TRIED
+def _load_host(source: str, signatures: dict, info: dict):
+    """Build (once per source version) and load ``csrc/<source>`` with g++,
+    or None when there is no ``g++`` or the build fails (``info`` says
+    which); a failed load is not retried."""
     with _LOCK:
-        if _PLYIO is not None or _PLYIO_TRIED:
-            return _PLYIO
-        _PLYIO_TRIED = True
+        if source in _HOST_LIBS:
+            return _HOST_LIBS[source]
+        _HOST_LIBS[source] = None
         gxx = shutil.which("g++")
         if gxx is None:
-            PLYIO_INFO.update(error="g++ not found")
+            info.update(error="g++ not found")
             return None
-        src = os.path.join(_CSRC, "plyio.cpp")
-        so, log = _build(gxx, GXX_FLAGS, [src], [src], "libgs2pc_torch_plyio")
+        src = os.path.join(_CSRC, source)
+        stem = f"libgs2pc_torch_{os.path.splitext(source)[0]}"
+        so, log = _build(gxx, GXX_FLAGS, [src], [src], stem)
         if so is None:
-            PLYIO_INFO.update(error=log)
+            info.update(error=log)
             return None
-        PLYIO_INFO.update(path=so)
+        info.update(path=so)
         lib = ctypes.CDLL(so)
-        lib.gs2pc_write_ply_expand.restype = ctypes.c_int
-        lib.gs2pc_write_ply_expand.argtypes = [
-            ctypes.c_char_p,  # path
-            ctypes.c_int64,  # total points
-            ctypes.c_void_p,  # points f32 (total, 3)
-            ctypes.c_void_p,  # counts i64 (P,)
-            ctypes.c_int64,  # P
-            ctypes.c_void_p,  # colours u8 (P, 3)
-            ctypes.c_void_p,  # normals f32 (P, 3) or NULL
-            ctypes.c_int64,  # chunk size
-        ]
-        _PLYIO = lib
+        for name, (restype, argtypes) in signatures.items():
+            fn = getattr(lib, name)
+            fn.restype = restype
+            fn.argtypes = argtypes
+        _HOST_LIBS[source] = lib
         return lib
+
+
+_I64 = ctypes.c_int64
+_PLYIO_SIGNATURES = {
+    "gs2pc_write_ply_expand": (_I, [
+        ctypes.c_char_p,  # path
+        _I64,  # total points
+        _P,  # points f32 (total, 3)
+        _P,  # counts i64 (P,)
+        _I64,  # P
+        _P,  # colours u8 (P, 3)
+        _P,  # normals f32 (P, 3) or NULL
+        _I64,  # chunk size
+    ]),
+}
+_MESHER_SIGNATURES = {
+    "gs2pc_marching_tet": (_I, [
+        _P,  # grid f32 (res, res, res)
+        _I64,  # res
+        ctypes.c_float,  # iso
+        ctypes.POINTER(_P),  # context out
+        ctypes.POINTER(_I64),  # vertex count out
+        ctypes.POINTER(_I64),  # face count out
+    ]),
+    "gs2pc_marching_tet_fetch": (_I, [_P, _P, _P]),  # context, verts f32, faces i32
+}
+
+
+def load_plyio() -> ctypes.CDLL | None:
+    """The PLY expand-writer (csrc/plyio.cpp), or None (PLYIO_INFO says why)."""
+    return _load_host("plyio.cpp", _PLYIO_SIGNATURES, PLYIO_INFO)
+
+
+def load_mesher() -> ctypes.CDLL | None:
+    """The marching-tetrahedra mesher (csrc/mesher.cpp), or None
+    (MESHER_INFO says why)."""
+    return _load_host("mesher.cpp", _MESHER_SIGNATURES, MESHER_INFO)
 
 
 def check(rc: int, name: str) -> None:

@@ -34,3 +34,14 @@ def rot_factors3(R: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
         for i in range(3)
     ]
     return torch.stack(rows, dim=-2)
+
+
+def bmm33_nt(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Batched ``A @ B.transpose(-1, -2)`` for (..., 3, 3) operands:
+    out[..., i, k] = sum_j A[..., i, j] * B[..., k, j]."""
+    return (A[..., :, None, :] * B[..., None, :, :]).sum(-1)
+
+
+def eig_recompose3(eigvecs: torch.Tensor, eigvals: torch.Tensor) -> torch.Tensor:
+    """``V diag(w) V^T`` for (..., 3, 3) V and (..., 3) w."""
+    return bmm33_nt(eigvecs * eigvals[..., None, :], eigvecs)

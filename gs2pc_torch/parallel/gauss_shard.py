@@ -50,7 +50,7 @@ divergence (c) does not arise.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -58,8 +58,10 @@ from gs2pc_torch.ops.blend import FLOAT_MAX, RenderOutput
 from gs2pc_torch.ops.linalg3 import dotrow3
 from gs2pc_torch.ops.projection import NEAR_Z
 from gs2pc_torch.ops.rasterize import TileConfig, render_tile_camera
+from gs2pc_torch.ops.sh import view_colours
 from gs2pc_torch.parallel.mesh import split_evenly
 from gs2pc_torch.sweep import (
+    SH,
     RenderArrays,
     SweepAccumulators,
     init_accumulators,
@@ -104,13 +106,17 @@ class _Slab(NamedTuple):
     overflow: int  # slab Gaussians beyond slab_capacity, dropped this camera
 
 
-def _compact(scene: RenderArrays, camera, d: int, n_dev: int) -> _Slab:
+def _compact(scene: RenderArrays, camera, d: int, n_dev: int, sh: Optional[SH]) -> _Slab:
+    """Slab d's rows; with ``sh`` their colours are the SH seen from this
+    camera, evaluated on the slab only."""
     p_full = scene.means.shape[0]
     idx = torch.nonzero(_slab_mask(scene.means, camera.viewmatrix, scene.alive, d, n_dev))[:, 0]
     p_slab = slab_capacity(p_full, n_dev)
     overflow = max(idx.shape[0] - p_slab, 0)
     idx = idx[:p_slab]
     rows = [t[idx] for t in scene[:4]]
+    if sh is not None:
+        rows[3] = view_colours(sh.degree, sh.coeffs[idx], rows[0], camera.campos)
     alive = torch.ones(idx.shape[0], dtype=torch.bool, device=idx.device)
     return _Slab(idx, RenderArrays(*rows, alive), overflow)
 
@@ -128,12 +134,13 @@ def _render_one_gauss_sharded(
     devices: Sequence[torch.device],
     cfg: TileConfig,
     calc_surface_distance: bool,
+    shs: Sequence[Optional[SH]],
 ) -> RenderOutput:
     n_dev = len(devices)
     home = devices[0]
     p_full = scenes[0].means.shape[0]
     cams = [camera.to(dev) for dev in devices]
-    slabs = [_compact(scenes[d], cams[d], d, n_dev) for d in range(n_dev)]
+    slabs = [_compact(scenes[d], cams[d], d, n_dev, shs[d]) for d in range(n_dev)]
 
     def render(d, **kw):
         return render_tile_camera(*slabs[d].scene, cams[d], cfg, white_bkgd=False, **kw)
@@ -209,15 +216,18 @@ def render_sweep_gauss_sharded(
     cfg: TileConfig,
     devices: Sequence[torch.device],
     calc_surface_distance: bool = True,
+    sh: Optional[SH] = None,
 ) -> SweepAccumulators:
     """Camera sweep with each camera's Gaussians split into depth slabs over
     ``devices``: K1 runs three times per slab and camera with the surface
-    pass on (twice without).  Accumulators come out on ``devices[0]``."""
+    pass on (twice without).  With ``sh`` each slab's colours are its SH
+    seen from the camera.  Accumulators come out on ``devices[0]``."""
     scenes = [scene.to(dev) for dev in devices]
+    shs = [None if sh is None else sh.to(dev) for dev in devices]
     acc = init_accumulators(scene.means.shape[0], device=devices[0])
     for i in range(cameras.num_cameras):
         out = _render_one_gauss_sharded(
-            scenes, cameras.at(i), devices, cfg, calc_surface_distance,
+            scenes, cameras.at(i), devices, cfg, calc_surface_distance, shs,
         )
         acc = update_accumulators(acc, out)
     return acc
@@ -239,6 +249,7 @@ def render_sweep_2d(
     cfg: TileConfig,
     devices: Sequence[torch.device],
     calc_surface_distance: bool = True,
+    sh: Optional[SH] = None,
 ) -> SweepAccumulators:
     """Camera-DP x Gaussian-slab sweep (gs2pc.parallel.gauss_shard.
     render_sweep_2d): cameras split over the rows of ``grid_2d(devices)`` in
@@ -251,7 +262,7 @@ def render_sweep_2d(
     for row, (lo, hi) in zip(rows, split_evenly(cameras.num_cameras, len(rows))):
         if hi > lo:
             part = render_sweep_gauss_sharded(
-                scene, cameras.sub(lo, hi, row[0]), cfg, row, calc_surface_distance,
+                scene, cameras.sub(lo, hi, row[0]), cfg, row, calc_surface_distance, sh,
             )
             acc = merge_accumulators(acc, part.to(devices[0]))
     return acc

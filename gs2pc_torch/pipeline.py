@@ -1,5 +1,6 @@
 """End-to-end conversion: load -> camera sweep (on one device, or sharded
-over several) -> cull chain -> PSD clamp -> sample -> host point cloud
+over several; or a saved sweep) -> cull chain -> PSD clamp -> sample ->
+host point cloud, and with --generate_mesh a second, surface point cloud
 (counterpart of gs2pc.pipeline.convert_3dgs_to_pc).
 
 Culled Gaussians stay in place with keep_mask False and get a zero point
@@ -22,6 +23,7 @@ from gs2pc_torch.io.colmap import load_transform_data
 from gs2pc_torch.io.gaussians_io import load_gaussians
 from gs2pc_torch.io.masks import load_image_masks
 from gs2pc_torch.io.ply import PointCloud
+from gs2pc_torch.meshing_native import MeshResult
 from gs2pc_torch.models.gaussians import Gaussians
 from gs2pc_torch.ops.blend import FLOAT_MAX
 from gs2pc_torch.ops.rasterize import TileConfig
@@ -29,38 +31,22 @@ from gs2pc_torch.ops.sampler import distribute_points, sample_points
 from gs2pc_torch.parallel import mesh
 from gs2pc_torch.parallel.gauss_shard import render_sweep_2d, render_sweep_gauss_sharded
 from gs2pc_torch.sweep import (
+    SH,
     SweepAccumulators,
     render_arrays,
     render_sweep,
     render_sweep_sharded,
 )
 from gs2pc_torch.utils import log
+from gs2pc_torch.utils.checkpoint import load_accumulators, save_accumulators
 
+# Truncation (dropped / blended pairs) above which the capacities are
+# reported as degrading quality, and --auto_capacity re-renders.
 TRUNCATION_WARN_FRACTION = 0.005
-
-# Settings whose feature this port does not have yet, with the number of
-# the ROADMAP.md 'Still to port' item that ports it.  Each refuses to run
-# rather than being ignored.
-_UNSUPPORTED = (
-    (lambda s: s.sh_colour_eval, "--sh_colour_eval", 2),
-    (lambda s: s.generate_mesh, "--generate_mesh", 4),
-    (lambda s: s.save_sweep is not None, "--save_sweep", 5),
-    (lambda s: s.load_sweep is not None, "--load_sweep", 5),
-    (lambda s: s.auto_capacity, "--auto_capacity", 7),
-)
-
-
-def check_supported(settings: GaussPointCloudSettings) -> None:
-    for unsupported, flag, item in _UNSUPPORTED:
-        if unsupported(settings):
-            raise_not_ported(flag, item)
-
-
-def raise_not_ported(flag: str, item: int) -> None:
-    raise ValueError(
-        f"{flag} is not ported to gs2pc_torch yet (ROADMAP.md, 'Still to port' "
-        f"item {item}); run it with python -m gs2pc"
-    )
+AUTO_CAPACITY_ATTEMPTS = 3
+# Surface points per surface Gaussian for the mesh cloud (the reference's
+# gauss_to_pc.py:575).
+AVG_POINTS_PER_GAUSS_FOR_MESH = 25
 
 
 def set_precision() -> None:
@@ -70,23 +56,49 @@ def set_precision() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def report_truncation(acc: SweepAccumulators) -> list:
-    """Log the sweep's truncation counters and return them.  The pair
-    expansion is exact, so only the per-tile run cap can drop pairs."""
+def report_truncation(acc: SweepAccumulators) -> Optional[list]:
+    """Log the sweep's truncation counters and return them, or None for a
+    sweep without counters (one loaded from a checkpoint).  The pair
+    expansion is exact, so only the per-tile run cap can drop pairs (and
+    the depth-slab buffers, counted as window drops)."""
+    if acc.n_dropped is None:
+        return None
     pairs, win_drop, cap_drop, cap_live = (float(x) for x in acc.n_dropped.cpu())
-    if pairs == 0.0 and cap_drop == 0.0:
-        return [pairs, win_drop, cap_drop, cap_live]
+    diag = [pairs, win_drop, cap_drop, cap_live]
+    if pairs == 0.0 and win_drop == 0.0 and cap_drop == 0.0:
+        return diag
     log.info(
-        f"Render pairs: {pairs:,.0f} blended; {cap_drop:,.0f} beyond the "
-        f"per-tile cap ({cap_live:,.0f} on live tiles)"
+        f"Render pairs: {pairs:,.0f} blended; {win_drop:,.0f} dropped with "
+        f"full slab buffers; {cap_drop:,.0f} beyond the per-tile cap "
+        f"({cap_live:,.0f} on live tiles)"
     )
-    if cap_live / max(pairs, 1.0) > TRUNCATION_WARN_FRACTION:
+    win_material, cap_material = truncation_material(diag)
+    if win_material:
+        log.warn(
+            f"{win_drop:,.0f} Gaussians ({100.0 * win_drop / max(pairs, 1.0):.2f}% of "
+            "blended pairs) did not fit their depth-slab buffers"
+        )
+    if cap_material:
         log.warn(
             f"{cap_live:,.0f} pairs ({100.0 * cap_live / max(pairs, 1.0):.2f}% of "
             "blended) fell beyond the per-tile depth cap on tiles with visible "
-            "transmittance; raise --max_pairs_per_tile"
+            "transmittance; raise --max_pairs_per_tile (or pass --auto_capacity)"
         )
-    return [pairs, win_drop, cap_drop, cap_live]
+    return diag
+
+
+def truncation_material(diag: Optional[list]) -> tuple[bool, bool]:
+    """(window drops material, live run-cap drops material) of a sweep's
+    counters: each above TRUNCATION_WARN_FRACTION of the blended pairs
+    (gs2pc.pipeline.report_truncation's flags)."""
+    if diag is None:
+        return False, False
+    pairs, win_drop, cap_drop, cap_live = diag
+    if pairs == 0.0 and win_drop == 0.0 and cap_drop == 0.0:
+        return False, False
+    denom = max(pairs, 1.0)
+    return (win_drop / denom > TRUNCATION_WARN_FRACTION,
+            cap_live / denom > TRUNCATION_WARN_FRACTION)
 
 
 def surface_keep_mask(min_surface_distance: torch.Tensor, surface_std: float) -> torch.Tensor:
@@ -126,9 +138,14 @@ def generate_point_cloud(
     gaussians: Gaussians,
     settings: GaussPointCloudSettings,
     contributions: Optional[torch.Tensor] = None,
+    num_points: Optional[int] = None,
+    seed_offset: int = 0,
 ) -> PointCloud:
-    """Quotas -> sampled positions -> host point cloud."""
-    num_points = settings.num_points
+    """Quotas -> sampled positions -> host point cloud, for
+    ``num_points`` (default ``settings.num_points``) drawn with the
+    generator seeded ``settings.seed + seed_offset``."""
+    if num_points is None:
+        num_points = settings.num_points
     sizes = gaussians.magnitudes(contributions=contributions)
     sizes = torch.where(gaussians.keep_mask, sizes, 0.0)
     ppg = distribute_points(
@@ -136,7 +153,7 @@ def generate_point_cloud(
     )
     n_cap = int(num_points + max(4096, num_points // 20))
     gen = torch.Generator(device=gaussians.device)
-    gen.manual_seed(settings.seed)
+    gen.manual_seed(settings.seed + seed_offset)
     sampled = sample_points(
         gaussians, ppg, n_cap=n_cap,
         mahalanobis_std=settings.mahalanobis_distance_std,
@@ -163,10 +180,17 @@ def generate_point_cloud(
 class Conversion(NamedTuple):
     cloud: PointCloud
     # Summed sweep counters [pairs blended, window-truncated, run-cap
-    # dropped, run-cap dropped on live tiles]; None without a sweep.
+    # dropped, run-cap dropped on live tiles]; None without a sweep or
+    # with a loaded one.
     sweep_diag: Optional[list]
     # Which PLY writer ran ("native_expand" or "numpy"), once the CLI wrote.
     writer: Optional[str] = None
+    # With --generate_mesh: the surface point cloud, and (surface
+    # Gaussians, the points asked of them).
+    surface_cloud: Optional[PointCloud] = None
+    surface_quota: Optional[tuple] = None
+    # The mesh, once the CLI built it.
+    mesh: Optional[MeshResult] = None
 
 
 def resolve_num_devices(num_devices: int, settings: GaussPointCloudSettings, device):
@@ -208,16 +232,40 @@ def run_render_sweep(
         raise ValueError(f"--shard_axis {settings.shard_axis} requires the tile renderer")
     cfg = tile_config(settings, cameras.width_pad, cameras.height_pad)
     scene = render_arrays(gaussians)
-    csd = settings.surface_distance_std is not None
+    # The mesh cloud samples the surface Gaussians, so meshing needs the
+    # surface distances too.
+    csd = settings.surface_distance_std is not None or settings.generate_mesh
+    sh = None
+    if settings.sh_colour_eval and gaussians.shs is not None:
+        sh = SH(gaussians.shs, settings.max_sh_degree)
     if settings.shard_axis == "gauss":
-        return render_sweep_gauss_sharded(scene, cameras, cfg, devices, calc_surface_distance=csd)
+        return render_sweep_gauss_sharded(scene, cameras, cfg, devices, calc_surface_distance=csd,
+                                          sh=sh)
     if settings.shard_axis == "both":
-        return render_sweep_2d(scene, cameras, cfg, devices, calc_surface_distance=csd)
+        return render_sweep_2d(scene, cameras, cfg, devices, calc_surface_distance=csd, sh=sh)
     if len(devices) > 1:
         return render_sweep_sharded(scene, cameras, cfg, devices, calc_surface_distance=csd,
-                                    renderer=settings.renderer_type)
+                                    renderer=settings.renderer_type, sh=sh)
     return render_sweep(scene, cameras, cfg, calc_surface_distance=csd,
-                        renderer=settings.renderer_type)
+                        renderer=settings.renderer_type, sh=sh)
+
+
+def sweep_with_capacity(gaussians, cameras, settings, devices):
+    """The sweep, and with --auto_capacity up to two re-renders, each with
+    the run cap doubled, while the live run-cap drops are material
+    (gs2pc/pipeline.py's escalation; the port expands pairs exactly and has
+    no pair budget, so the run cap is the one capacity to grow).  Returns
+    the last sweep's accumulators on ``devices[0]`` and its counters."""
+    attempts = AUTO_CAPACITY_ATTEMPTS if settings.auto_capacity else 1
+    for attempt in range(attempts):
+        acc = run_render_sweep(gaussians, cameras, settings, devices)
+        diag = report_truncation(acc)
+        if not truncation_material(diag)[1] or attempt == attempts - 1:
+            return acc, diag
+        run_cap = settings.render.max_pairs_per_tile * 2
+        settings = settings._replace(
+            render=settings.render._replace(max_pairs_per_tile=run_cap))
+        log.warn(f"auto_capacity: re-rendering with run_cap={run_cap}")
 
 
 def convert_3dgs_to_pc(
@@ -231,8 +279,9 @@ def convert_3dgs_to_pc(
 ) -> Conversion:
     """The full conversion on ``device``, with the camera sweep over
     ``num_devices`` devices (0: every local card; see resolve_num_devices
-    and sweep_devices); returns the host point cloud."""
-    check_supported(settings)
+    and sweep_devices), or the sweep loaded from ``settings.load_sweep``
+    (then no transforms are needed); returns the host point cloud, and the
+    surface point cloud with --generate_mesh."""
     set_precision()
     device = torch.device(device)
     log.set_quiet(settings.quiet)
@@ -255,30 +304,43 @@ def convert_3dgs_to_pc(
                          "it will be ignored")
 
     with log.phase("load_gaussians"):
+        # 8-bit colours exactly where the blend quantises them anyway: the
+        # tile renderer's compact tables.
         gaussians = load_gaussians(
             input_path, max_sh_degree=settings.max_sh_degree,
-            compact_colours=settings.render.compact_pairs and settings.render_colours,
-            device=device,
+            compact_colours=(settings.render.compact_pairs and settings.renderer_type == "tile"
+                             and settings.render_colours),
+            with_shs=settings.sh_colour_eval, device=device,
         )
     if settings.calculate_normals:
         gaussians = gaussians.calculate_normals()
 
     contributions = None
     diag = None
+    surface_keep = None
     if settings.render_colours:
-        if transform_path is None:
+        if transform_path is None and settings.load_sweep is None:
             raise ValueError(
                 "colour rendering needs camera transforms: pass --transform_path "
                 "(or --no_render_colours to skip the sweep)"
             )
-        log.info("Camera sweep: rendering per-Gaussian colours")
-        with log.phase("render_sweep"):
-            cameras = build_camera_batch(
-                transforms, intrinsics, colour_resolution=settings.colour_resolution,
-                masks=mask_images, device=device,
-            )
-            acc = run_render_sweep(gaussians, cameras, settings, devices).to(device)
-        diag = report_truncation(acc)
+        if settings.load_sweep is not None:
+            with log.phase("load_sweep"):
+                acc = load_accumulators(settings.load_sweep, gaussians.num_gaussians,
+                                        scene_xyz=gaussians.xyz, device=device)
+        else:
+            log.info("Camera sweep: rendering per-Gaussian colours")
+            with log.phase("render_sweep"):
+                cameras = build_camera_batch(
+                    transforms, intrinsics, colour_resolution=settings.colour_resolution,
+                    masks=mask_images, device=device,
+                )
+                acc, diag = sweep_with_capacity(gaussians, cameras, settings, devices)
+                acc = acc.to(device)
+            if settings.save_sweep is not None:
+                with log.phase("save_sweep"):
+                    save_accumulators(settings.save_sweep, acc, gaussians.num_gaussians,
+                                      scene_xyz=gaussians.xyz)
         with log.phase("cull_chain"):
             gaussians = cull_chain(gaussians, acc, settings)
             kept = int(gaussians.keep_mask.sum())
@@ -288,6 +350,8 @@ def convert_3dgs_to_pc(
                 "every Gaussian was culled; no points can be sampled "
                 "(relax the cull thresholds or check the camera poses)"
             )
+        if settings.generate_mesh:
+            surface_keep = surface_keep_mask(acc.min_surface_distance, 1.0)
         if settings.prioritise_visible_gaussians:
             contributions = acc.total_contribution
     else:
@@ -298,4 +362,18 @@ def convert_3dgs_to_pc(
         gaussians = gaussians.validate_covariances()
     with log.phase("point_sampling"):
         cloud = generate_point_cloud(gaussians, settings, contributions=contributions)
-    return Conversion(cloud, diag)
+    if surface_keep is None:
+        return Conversion(cloud, diag)
+
+    # The mesh's point cloud: the surface Gaussians alone, 25 points each
+    # at most, from the generator seeded seed + 1.
+    surface = gaussians.add_to_cull(surface_keep)
+    n_surface = int(surface.keep_mask.sum())
+    n_mesh = min(settings.num_points // 2, n_surface * AVG_POINTS_PER_GAUSS_FOR_MESH)
+    log.info(f"Sampling the surface (mesh) point cloud: {n_mesh} points over "
+             f"{n_surface} surface Gaussians")
+    with log.phase("surface_sampling"):
+        surface_cloud = generate_point_cloud(surface, settings, contributions=contributions,
+                                             num_points=n_mesh, seed_offset=1)
+    return Conversion(cloud, diag, surface_cloud=surface_cloud,
+                      surface_quota=(n_surface, n_mesh))

@@ -19,6 +19,7 @@ import torch
 from gs2pc_torch.ops.blend import FLOAT_MAX, RenderOutput
 from gs2pc_torch.ops.dense_render import render_dense
 from gs2pc_torch.ops.rasterize import TileConfig, render_tile_camera
+from gs2pc_torch.ops.sh import view_colours
 from gs2pc_torch.parallel.mesh import split_evenly
 
 
@@ -98,13 +99,28 @@ def merge_accumulators(a: SweepAccumulators, b: SweepAccumulators) -> SweepAccum
     )
 
 
+class SH(NamedTuple):
+    """Full SH coefficients (P, 3, (degree + 1)^2) for per-camera colours."""
+
+    coeffs: torch.Tensor
+    degree: int
+
+    def to(self, device) -> "SH":
+        return SH(self.coeffs.to(device), self.degree)
+
+
 def render_camera(
     scene: RenderArrays, camera, cfg: TileConfig, renderer: str = "tile",
-    calc_surface_distance: bool = True,
+    calc_surface_distance: bool = True, sh: Optional[SH] = None,
 ) -> RenderOutput:
     """One camera with ``renderer`` (gs2pc.parallel.sweep._render_one):
     "tile", or "dense", the oracle, in chunks of ``cfg.run_chunk``
-    Gaussians with the camera's mask."""
+    Gaussians with the camera's mask.  With ``sh`` the colours are the
+    Gaussians' SH seen from this camera, so each camera blends its own
+    colour table."""
+    if sh is not None:
+        scene = scene._replace(
+            colours=view_colours(sh.degree, sh.coeffs, scene.means, camera.campos))
     if renderer == "dense":
         return render_dense(
             *scene, camera, cfg.width_pad, cfg.height_pad, chunk=cfg.run_chunk,
@@ -117,13 +133,13 @@ def render_camera(
 
 def render_sweep(
     scene: RenderArrays, cameras, cfg: TileConfig, calc_surface_distance: bool = True,
-    renderer: str = "tile",
+    renderer: str = "tile", sh: Optional[SH] = None,
 ) -> SweepAccumulators:
     """Render every camera in turn on the scene's device and fold it into
     the accumulators."""
     acc = init_accumulators(scene.means.shape[0], device=scene.means.device)
     for i in range(cameras.num_cameras):
-        out = render_camera(scene, cameras.at(i), cfg, renderer, calc_surface_distance)
+        out = render_camera(scene, cameras.at(i), cfg, renderer, calc_surface_distance, sh)
         acc = update_accumulators(acc, out)
     return acc
 
@@ -135,6 +151,7 @@ def render_sweep_sharded(
     devices: Sequence[torch.device],
     calc_surface_distance: bool = True,
     renderer: str = "tile",
+    sh: Optional[SH] = None,
 ) -> SweepAccumulators:
     """Camera data-parallel sweep (gs2pc.parallel.sweep.render_sweep_sharded).
 
@@ -149,6 +166,7 @@ def render_sweep_sharded(
     for dev, (lo, hi) in zip(devices, split_evenly(cameras.num_cameras, len(devices))):
         if hi > lo:
             part = render_sweep(scene.to(dev), cameras.sub(lo, hi, dev), cfg,
-                                calc_surface_distance, renderer)
+                                calc_surface_distance, renderer,
+                                None if sh is None else sh.to(dev))
             acc = merge_accumulators(acc, part.to(devices[0]))
     return acc

@@ -524,3 +524,74 @@ def test_dense_oracle_on_card_matches_cpu(cuda):
     torch.testing.assert_close(outs[1].image.cpu(), outs[0].image, atol=TOL_IMAGE, rtol=0)
     torch.testing.assert_close(outs[1].contrib.cpu(), outs[0].contrib, atol=TOL_CONTRIB, rtol=0)
     torch.testing.assert_close(outs[1].surf_dist.cpu(), outs[0].surf_dist, atol=TOL_SURF, rtol=0)
+
+
+def test_blend_kernel_sh_table_matches_twin(cuda):
+    """K1 on the table of one camera's SH colours (per-camera rgb24 lanes)."""
+    from gs2pc_torch.ops.sh import view_colours
+
+    g = _scene(3000, 9, cuda)
+    r = np.random.default_rng(9)
+    coeffs = torch.tensor(r.normal(scale=0.3, size=(3000, 3, 16)), dtype=torch.float32,
+                          device=cuda)
+    batch, cam = _camera(cuda)
+    colours = view_colours(3, coeffs, g.xyz, cam.campos)
+    assert float((colours - g.colours).abs().max()) > 0.1
+    cfg = R.TileConfig(width_pad=batch.width_pad, height_pad=batch.height_pad,
+                       run_cap=512, compact=True, surface_compact=True)
+    prep = preprocess(g.xyz, g.covariance_factors(), g.opacities, g.keep_mask, cam,
+                      adaptive_radius=False)
+    args, kw, _ = R.blend_inputs(prep, colours, cam, cfg, calc_surface_distance=True)
+    before = B.blend_tiles.launches
+    k = B.blend_tiles(*args, **kw)
+    assert B.blend_tiles.launches == before + 1
+    _assert_kernel_matches_twin(k, B.blend_tiles_torch(*args, **kw))
+
+
+def test_outlier_mask_on_card_matches_cpu(cuda):
+    """The cleaning's Morton-window kNN on the card: distances within 1e-6
+    relative of the CPU's, masks equal away from the threshold."""
+    from gs2pc_torch import meshing
+
+    r = np.random.default_rng(10)
+    pts = r.normal(scale=0.3, size=(50_000, 3)).astype(np.float32)
+    pts[:50] = r.uniform(-20, 20, (50, 3))
+    d_cpu = meshing.knn_mean_distance(torch.tensor(pts))
+    d_gpu = meshing.knn_mean_distance(torch.tensor(pts, device=cuda)).cpu()
+    torch.testing.assert_close(d_gpu, d_cpu, rtol=1e-6, atol=0)
+    for ratio in (10.0, 3.0):
+        k_cpu = meshing.statistical_outlier_mask(torch.tensor(pts), std_ratio=ratio)
+        k_gpu = meshing.statistical_outlier_mask(torch.tensor(pts, device=cuda),
+                                                 std_ratio=ratio).cpu()
+        d = d_cpu.double()
+        thr = d.mean() + ratio * d.std(correction=0)
+        near = (d - thr).abs() <= 1e-6 * thr
+        assert torch.equal(k_gpu[~near], k_cpu[~near])
+        assert int((~k_cpu).sum()) >= 50
+
+
+def test_from_covariances_on_card_matches_cpu(cuda):
+    """Sigma from the factors within 1e-5 relative of the CPU's; keep masks
+    equal (from_covariances repairs in float64, so neither device's
+    rounding decides them)."""
+    from gs2pc_torch.ops.linalg3 import bmm33_nt
+    from gs2pc_torch.ops.quaternion import quat_to_rotmat
+
+    r = np.random.default_rng(11)
+    n = 4096
+    q = r.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    R3 = quat_to_rotmat(torch.tensor(q)).numpy()
+    lam = np.sort(np.exp(2.0 * r.uniform(-5.0, -2.0, (n, 3))), axis=1)
+    lam[::2, 0] = -r.uniform(1e-6, 1e-3, n // 2)
+    sigma = np.einsum("nij,nj,nkj->nik", R3, lam, R3).astype(np.float32)
+    xyz = r.normal(size=(n, 3)).astype(np.float32)
+    cols, opac = r.uniform(size=(n, 3)).astype(np.float32), r.uniform(size=n).astype(np.float32)
+    out = []
+    for dev in ("cpu", cuda):
+        g = Gaussians.from_covariances(xyz, sigma, cols, opac, device=dev)
+        M = g.covariance_factors()
+        out.append((bmm33_nt(M, M).cpu(), g.keep_mask.cpu()))
+    scale = out[0][0].abs().amax(dim=(1, 2), keepdim=True)
+    assert bool(((out[1][0] - out[0][0]).abs() <= 1e-5 * scale).all())
+    assert torch.equal(out[1][1], out[0][1])

@@ -251,6 +251,44 @@ def test_dense_conversion_matches_jax(capture, tmp_path):
     assert same.all(axis=1).mean() >= BEST_SHARE
 
 
+def test_dense_conversion_blends_jax_colours(capture, tmp_path):
+    """With --renderer_type dense the colour plane is uploaded in float32, as
+    JAX's loader does: only the tile renderer's compact tables quantise it
+    to 8 bits (gs2pc/pipeline.py:851-855).  Both conversions' loaded planes
+    and dense sweeps' colours, captured on the way, agree within 1e-6 (an
+    8-bit plane is up to 2e-3 off)."""
+    got = {}
+
+    def spy(module, name, key):
+        real = getattr(module, name)
+
+        def wrapped(*a, **kw):
+            got[key] = out = real(*a, **kw)
+            return out
+        return wrapped
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("GS2PC_CACHE_DIR", str(tmp_path / "jax_cache"))
+        mp.setattr(jax_pipeline, "load_gaussians", spy(jax_pipeline, "load_gaussians", "jax_g"))
+        mp.setattr(jax_pipeline, "run_render_sweep",
+                   spy(jax_pipeline, "run_render_sweep", "jax_acc"))
+        mp.setattr(pipeline, "load_gaussians", spy(pipeline, "load_gaussians", "g"))
+        mp.setattr(pipeline, "run_render_sweep", spy(pipeline, "run_render_sweep", "acc"))
+        jax_pipeline.convert_3dgs_to_pc(
+            capture["ply"], capture["transforms"], capture["masks"],
+            JaxSettings(**DENSE_SETTINGS), num_devices=1,
+        )
+        pipeline.convert_3dgs_to_pc(
+            capture["ply"], capture["transforms"], capture["masks"],
+            GaussPointCloudSettings(**DENSE_SETTINGS), device="cpu",
+        )
+    np.testing.assert_allclose(got["g"].colours.numpy(), np.asarray(got["jax_g"][0].colours),
+                               rtol=0, atol=1e-6)
+    tc, jc = got["acc"].colours.numpy(), np.asarray(got["jax_acc"].colours)
+    same = np.abs(tc - jc).max(axis=1) <= 1e-6
+    assert same.mean() >= BEST_SHARE
+
+
 @pytest.mark.parametrize("axis", ["gauss", "both"])
 def test_dense_refused_with_gaussian_axis(capture, axis):
     settings = GaussPointCloudSettings(**DENSE_SETTINGS, shard_axis=axis)

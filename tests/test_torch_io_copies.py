@@ -1,22 +1,34 @@
 """The port's copies of JAX-package host modules against their sources:
 the CLI parser and settings, the PLY / .splat / transforms.json readers,
-the g++-built PLY expand-writer, and the capture helpers of bench.py.  A
-drifted copy would be a silent fault, so each is pinned here."""
+the g++-built PLY expand-writer, the capture helpers of bench.py, the sweep
+checkpoint, and the native mesher (meshing_native.py and the g++-built
+mesher.cpp).  A drifted copy would be a silent fault, so each is pinned
+here."""
 
+import os
 import types
 
 import numpy as np
 import pytest
+import torch
 
 import bench
+import jax.numpy as jnp
+from gs2pc import meshing_native as jax_native
 from gs2pc.io import ply as jax_ply
 from gs2pc.io import splat as jax_splat
 from gs2pc.io import transforms_json as jax_tj
+from gs2pc.parallel.sweep import SweepAccumulators as JaxAccumulators
+from gs2pc.utils import checkpoint as jax_checkpoint
 from gs2pc.utils import config as jax_config
+from gs2pc_torch import meshing_native
 from gs2pc_torch.io import ply, splat, transforms_json
 from gs2pc_torch.io.ply import PointCloud, save_point_cloud_ply
-from gs2pc_torch.utils import capture, config
+from gs2pc_torch.sweep import SweepAccumulators
+from gs2pc_torch.utils import capture, checkpoint, config
 from tests.fixture_scene import write_capture
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 BASE = ["--input_path", "scene.ply", "--transform_path", "t.json"]
 ARGV = [
@@ -33,7 +45,7 @@ ARGV = [
     BASE + ["--pallas", "off", "--pair_budget", "100", "--tile_slots", "8",
             "--tile_slots_small", "2", "--big_window_cap", "7", "--dispatch_cameras", "3",
             "--sampler_device", "host"],
-    # Flags the port refuses.
+    # Flags the port once refused (all run now).
     BASE + ["--renderer_type", "python"],
     BASE + ["--generate_mesh", "--poisson_depth", "8", "--clean_pointcloud"],
     BASE + ["--save_sweep", "s.npz", "--load_sweep", "l.npz", "--sh_colour_eval",
@@ -149,3 +161,74 @@ def test_capture_helpers_match_bench(tmp_path):
     for name in transforms:
         assert ((tmp_path / "a" / "masks" / f"{name}.png").read_bytes()
                 == (tmp_path / "b" / "masks" / f"{name}.png").read_bytes())
+
+
+def test_checkpoint_copy_writes_jax_files(tmp_path):
+    """Both packages' save_accumulators write the same arrays under the
+    same keys with the same dtypes (version, count, fingerprint, planes)."""
+    r = np.random.default_rng(7)
+    n = 64
+    planes = dict(max_contribution=r.uniform(size=n), colours=r.uniform(size=(n, 3)),
+                  total_contribution=r.uniform(size=n), min_surface_distance=r.uniform(size=n))
+    planes = {k: v.astype(np.float32) for k, v in planes.items()}
+    xyz = r.normal(size=(n, 3)).astype(np.float32)
+    ours, theirs = str(tmp_path / "ours.npz"), str(tmp_path / "theirs.npz")
+    checkpoint.save_accumulators(ours, SweepAccumulators(
+        **{k: torch.tensor(v) for k, v in planes.items()}), n, scene_xyz=torch.tensor(xyz))
+    jax_checkpoint.save_accumulators(theirs, JaxAccumulators(
+        **{k: jnp.asarray(v) for k, v in planes.items()}), n, scene_xyz=jnp.asarray(xyz))
+    with np.load(ours) as a, np.load(theirs) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for key in b.files:
+            assert a[key].dtype == b[key].dtype
+            np.testing.assert_array_equal(a[key], b[key])
+
+
+def _surface_points(n=3000, seed=8):
+    """Points on a sphere and a plane, the kind of surface cloud the mesher gets."""
+    r = np.random.default_rng(seed)
+    d = r.normal(size=(n // 2, 3))
+    sphere = 0.6 * d / np.linalg.norm(d, axis=1, keepdims=True)
+    plane = np.c_[r.uniform(-1, 1, n - n // 2), np.full(n - n // 2, -0.8),
+                  r.uniform(-1, 1, n - n // 2)]
+    pts = np.concatenate([sphere, plane]) + r.normal(scale=0.005, size=(n, 3))
+    return pts.astype(np.float32), r.integers(0, 256, (n, 3)).astype(np.float32)
+
+
+def test_meshing_native_copy_matches_jax(tmp_path):
+    """Each step of the port's meshing_native gives the JAX module's arrays,
+    and the whole pipeline writes the same mesh PLY bytes."""
+    pts, cols = _surface_points()
+    grid, origin, voxel = meshing_native.density_grid(pts, resolution=48)
+    jgrid, jorigin, jvoxel = jax_native.density_grid(pts, resolution=48)
+    np.testing.assert_array_equal(grid, jgrid)
+    np.testing.assert_array_equal(origin, jorigin)
+    assert voxel == jvoxel
+    iso = float(np.quantile(grid[grid > 0], 0.6))
+    verts, faces, _ = meshing_native.marching_tetrahedra(grid, iso, origin, voxel)
+    smooth = meshing_native.laplacian_smooth(verts, faces, iterations=3)
+    np.testing.assert_array_equal(smooth, jax_native.laplacian_smooth(verts, faces, iterations=3))
+    for a, b in zip(meshing_native.mesh_vertex_attributes(smooth, pts, cols, grid, origin, voxel),
+                    jax_native.mesh_vertex_attributes(smooth, pts, cols, grid, origin, voxel)):
+        np.testing.assert_array_equal(a, b)
+    ours, theirs = tmp_path / "ours.ply", tmp_path / "theirs.ply"
+    got = meshing_native.generate_mesh_native(pts, cols, None, str(ours), depth=6,
+                                              laplacian_iters=2)
+    want = jax_native.generate_mesh_native(pts, cols, None, str(theirs), depth=6,
+                                           laplacian_iters=2)
+    np.testing.assert_array_equal(got.verts, want[0])
+    np.testing.assert_array_equal(got.faces, want[1])
+    assert got.mesher == "native" and got.points == len(pts) and len(got.faces) > 100
+    assert ours.read_bytes() == theirs.read_bytes()
+
+
+def test_mesher_cpp_is_the_jax_source():
+    """csrc/mesher.cpp is gs2pc/native/mesher.cpp below its own header
+    comment, byte for byte (its output is held to the JAX build's in
+    tests/test_torch_meshing.py)."""
+    def body(path):
+        with open(os.path.join(REPO, path)) as fh:
+            text = fh.read()
+        return text[text.index("#include"):]
+
+    assert body("gs2pc_torch/csrc/mesher.cpp") == body("gs2pc/native/mesher.cpp")

@@ -153,12 +153,15 @@ def test_ply_matches_jax_writer_layout(conversions, tmp_path):
 
 
 def test_port_never_imports_jax(capture, tmp_path):
-    """A CPU conversion with the depth-slab sweep on two devices and the PLY
-    write loads no JAX, no bench harness and no module of gs2pc/."""
+    """CPU conversions, one with the depth-slab sweep on two devices and the
+    PLY write, one with --sh_colour_eval --generate_mesh --save_sweep then
+    the cleaning and the mesh, load no JAX, no bench harness and no module
+    of gs2pc/."""
     script = textwrap.dedent(f"""
         import sys
         import gs2pc_torch.cli
         from gs2pc_torch.io.ply import save_point_cloud_ply
+        from gs2pc_torch.meshing import clean_point_cloud, generate_mesh
         from gs2pc_torch.pipeline import convert_3dgs_to_pc
         from gs2pc_torch.utils.config import GaussPointCloudSettings
         s = GaussPointCloudSettings(num_points=5000, colour_resolution=None, quiet=True,
@@ -167,6 +170,18 @@ def test_port_never_imports_jax(capture, tmp_path):
                                  {capture['masks']!r}, s, device="cpu", num_devices=2)
         save_point_cloud_ply(res.cloud, {str(tmp_path / 'out.ply')!r})
         assert res.cloud.total > 0
+        s = GaussPointCloudSettings(num_points=5000, colour_resolution=None, quiet=True,
+                                    sh_colour_eval=True, generate_mesh=True,
+                                    save_sweep={str(tmp_path / 'sweep.npz')!r})
+        res = convert_3dgs_to_pc({capture['ply']!r}, {capture['transforms']!r},
+                                 {capture['masks']!r}, s, device="cpu")
+        save_point_cloud_ply(clean_point_cloud(res.cloud, device="cpu"),
+                             {str(tmp_path / 'clean.ply')!r})
+        surf = res.surface_cloud
+        mesh = generate_mesh(surf.points, surf.cols_u8[surf.gauss_ids()], surf.normals,
+                             {str(tmp_path / 'mesh.ply')!r}, depth=5, laplacian_iters=2,
+                             device="cpu")
+        assert len(mesh.faces) > 0, mesh
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "bench", "gs2pc"))
         assert not bad, bad
@@ -230,10 +245,53 @@ def test_cli_refuses_to_run_without_cuda(capture, tmp_path):
     ["--load_sweep", "s.npz"], ["--sh_colour_eval"], ["--auto_capacity"],
 ])
 def test_cli_refuses_unported_flags(flag):
+    """The six flags once refused as not ported now pass the flag checks;
+    without CUDA the CLI still exits non-zero before reading anything."""
     from gs2pc_torch import cli
 
-    with pytest.raises(ValueError, match="not ported"):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(SystemExit, match="no CUDA device"):
         cli.main(["--input_path", "x.ply", "--transform_path", "t.json", *flag])
+
+
+def test_auto_capacity_matches_jax(capture, tmp_path):
+    """--auto_capacity with a run cap of 32 on the fixture: the run cap
+    doubles while live cap drops stay material, as many times as in the
+    JAX pipeline (whose pair budget keeps every window, so only its run
+    cap grows too), and the final sweep's accumulators and counters are
+    JAX's."""
+    settings = SETTINGS._replace(auto_capacity=True,
+                                 render=SETTINGS.render._replace(max_pairs_per_tile=32))
+    sweeps = {"jax": [], "port": []}
+
+    def spy(module, key):
+        real = module.run_render_sweep
+
+        def wrapped(*a, **kw):
+            sweeps[key].append(real(*a, **kw))
+            return sweeps[key][-1]
+        return wrapped
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("GS2PC_CACHE_DIR", str(tmp_path / "jax_cache"))
+        mp.setattr(jax_pipeline, "run_render_sweep", spy(jax_pipeline, "jax"))
+        mp.setattr(pipeline, "run_render_sweep", spy(pipeline, "port"))
+        jax_pipeline.convert_3dgs_to_pc(capture["ply"], capture["transforms"],
+                                        capture["masks"], settings, num_devices=1)
+        res = pipeline.convert_3dgs_to_pc(capture["ply"], capture["transforms"],
+                                          capture["masks"], settings, device="cpu")
+    assert len(sweeps["port"]) == len(sweeps["jax"]) >= 2
+    jacc, tacc = sweeps["jax"][-1], sweeps["port"][-1]
+    assert float(jacc.n_dropped[1]) == 0.0
+    assert res.sweep_diag == list(jax_pipeline.LAST_SWEEP_DIAG)
+    np.testing.assert_array_equal(np.asarray(jacc.n_dropped), tacc.n_dropped.numpy())
+    np.testing.assert_allclose(np.asarray(jacc.max_contribution), tacc.max_contribution.numpy(),
+                               rtol=RTOL_ACC, atol=TOL_CONTRIB)
+    np.testing.assert_allclose(np.asarray(jacc.colours), tacc.colours.numpy(), atol=TOL_COLOUR)
+    first = pipeline.truncation_material(
+        [float(x) for x in sweeps["port"][0].n_dropped])
+    assert first == (False, True)
 
 
 @pytest.mark.parametrize("flag", [
