@@ -67,6 +67,22 @@ Phases (each prints one line or more; any failure exits non-zero):
                share
  17. covariances Gaussians.from_covariances on 1M seeded covariances, half
                not PSD, on the card against the CPU
+ 18. preview   gs2pc_torch.tools.render_preview --depth on the e2e capture,
+               4 cameras at 1280x720: each decoded PNG equal to the 8-bit
+               image (and normalised depth) of sweep.render_camera; K1 4 and
+               K2 8 launches
+ 19. convert   gs2pc_torch.tools.convert_format on the 3M-Gaussian .ply ->
+               .splat -> .ply, the round trip held to the CPU test's bounds
+ 20. splits    the 16 e2e cameras at 1280x720: the camera split on
+               [cuda:0] * 2, the depth-slab and 2-D sweeps on [cuda:0] * 4
+               (and all three on every card of a machine with several), each
+               run twice: the same bits both times, held to one device, walls
+               beside the one-device sweep's
+ 21. dry run   parallel.dryrun.dryrun_multichip(8) on [cuda:0] * 8 (and on
+               every card of a machine with several), a verdict line per axis
+ 22. forensics gs2pc_torch.tools.pixel_forensics on phase 11's tile and
+               oracle images: the float64 truth at the 12 worst pixels, which
+               side is wrong; under 60 s
 The line before the last is the kernels' JSON record (max_abs_err at the
 shape of phases 7-8 and 10; ms the time through the wrapper, also given as
 wrapper_ms, and launch_ms the launch alone, K2's count + write; K3 as the
@@ -161,6 +177,17 @@ OUTLIER_NEAR_RTOL = 1e-6
 # the keep masks do not follow either device's rounding).
 N_COVARIANCES = 1_000_000
 COV_RTOL = 1e-5
+# The seventh slice's phases (18-22).  Preview: the e2e capture's first
+# cameras at full width; convert: the round trip held to
+# tests/test_torch_tools_more.py's (and tests/test_tools.py's) tolerances.
+N_PREVIEW_CAMERAS = 4
+TOL_CONVERT_XYZ = 1e-5
+TOL_CONVERT_OPACITY = 2 / 255
+TOL_CONVERT_LOG_SCALE = 1e-4
+N_SPLIT_SLABS = 4
+N_DRYRUN_DEVICES = 8
+N_FORENSIC_PIXELS = 12
+FORENSICS_LIMIT_S = 60.0
 MESH_PHASES = ("clean_pointcloud", "surface_sampling", "mesh_outliers", "mesh_density_grid",
                "mesh_iso_level", "mesh_marching_tetrahedra", "mesh_smooth", "mesh_attributes",
                "mesh_write")
@@ -973,7 +1000,8 @@ def phase_oracle(device):
           f"(not gated; DESIGN §2 expects <= 2e-4)", flush=True)
     if not rec["psnr_db"] >= PSNR_FLOOR_DB:
         fail(f"oracle PSNR {rec['psnr_db']} dB < {PSNR_FLOOR_DB} dB")
-    return dict(rec, dense_s=dense_s, n_valid=n_valid, exact=exact)
+    return dict(rec, dense_s=dense_s, n_valid=n_valid, exact=exact,
+                tile_image=out_t.image.cpu().numpy(), oracle_image=out_d.image.cpu().numpy())
 
 
 def phase_dense_cli(device, work):
@@ -1332,6 +1360,249 @@ def phase_covariances(device):
         fail(f"from_covariances: keep masks differ on {differ} rows")
 
 
+def launched() -> dict:
+    """K1 and K2 launches since reset_launches()."""
+    got = read_launches()
+    return {"K1": got["blend_tiles"], "K2": got["duplicate_with_keys"]}
+
+
+def phase_preview(device, work, ply, tj):
+    """render_preview --depth on the e2e capture, 4 cameras at full width:
+    each decoded PNG equals the 8-bit quantisation of render_camera's image
+    (and of its min-max normalised depth)."""
+    import torch
+
+    from gs2pc_torch.sweep import render_camera
+    from gs2pc_torch.tools import render_preview
+    from gs2pc_torch.utils.imaging import imread_png, to_u8
+
+    out_dir = os.path.join(work, "previews")
+    reset_launches()
+    t0 = time.perf_counter()
+    written = render_preview.main([
+        "--input_path", ply, "--transform_path", tj, "--out_dir", out_dir,
+        "--max_images", str(N_PREVIEW_CAMERAS), "--colour_quality", "original", "--depth",
+        "--device", str(device)])
+    wall = time.perf_counter() - t0
+    launches = launched()
+    want = {"K1": N_PREVIEW_CAMERAS, "K2": 2 * N_PREVIEW_CAMERAS}
+    if launches != want or len(written) != 2 * N_PREVIEW_CAMERAS:
+        fail(f"preview: launches {launches} (expected {want}), {len(written)} files written")
+    scene = render_preview.scene_arrays(render_preview.load_gaussians(ply, device=device))
+    transforms, intr = render_preview.load_transform_data(tj)
+    names = list(transforms)[:N_PREVIEW_CAMERAS]
+    cams = render_preview.build_camera_batch({k: transforms[k] for k in names}, intr,
+                                             device=device)
+    cfg = render_preview.TileConfig(width_pad=cams.width_pad, height_pad=cams.height_pad)
+    for i, name in enumerate(names):
+        cam = cams.at(i)
+        o = render_camera(scene, cam, cfg, calc_surface_distance=False)
+        h, w = cam.height, cam.width
+        want_img = to_u8(o.image[:h, :w].cpu().numpy())
+        want_depth = to_u8(render_preview.normalised_depth(o.depth[:h, :w].cpu().numpy()))
+        got_img = imread_png(os.path.join(out_dir, f"{name}.png"))
+        got_depth = imread_png(os.path.join(out_dir, f"{name}_depth.png"))
+        if not (got_img.shape == (h, w, 3) and (got_img == want_img).all()
+                and (got_depth == want_depth).all()):
+            fail(f"preview: {name}'s PNGs differ from render_camera's image / depth")
+    del scene
+    torch.cuda.synchronize()
+    print(f"preview: render_preview --depth, {N_PREVIEW_CAMERAS} cameras at "
+          f"{cams.width_pad}x{cams.height_pad} padded, {N_E2E_GAUSSIANS} Gaussians, in "
+          f"{wall:.3f}s (scene load included); launches {launches}; every PNG equal to "
+          f"render_camera's image and depth, 8-bit", flush=True)
+    return dict(wall=wall, launches=launches)
+
+
+def phase_convert(work, ply):
+    """convert_format .ply -> .splat -> .ply on the 3M-Gaussian capture."""
+    import numpy as np
+
+    from gs2pc_torch.tools import convert_format
+
+    splat, back = os.path.join(work, "scene.splat"), os.path.join(work, "back.ply")
+    t0 = time.perf_counter()
+    n1 = convert_format.main([ply, splat])
+    t1 = time.perf_counter()
+    n2 = convert_format.main([splat, back])
+    t2 = time.perf_counter()
+    a, b = convert_format.load_host(ply), convert_format.load_host(back)
+    errs = dict(xyz=float(np.abs(a[0] - b[0]).max()),
+                opacity=float(np.abs(a[4] - b[4]).max()),
+                log_scale=float(np.abs(a[1] - b[1]).max()))
+    print(f"convert: {n1} Gaussians .ply -> .splat {t1 - t0:.3f}s "
+          f"({os.path.getsize(splat)} bytes), .splat -> .ply {t2 - t1:.3f}s; round trip max "
+          f"|d| xyz {errs['xyz']:.3g} (<= {TOL_CONVERT_XYZ:g}), opacity {errs['opacity']:.3g} "
+          f"(<= {TOL_CONVERT_OPACITY:.3g}), log scale {errs['log_scale']:.3g} "
+          f"(<= {TOL_CONVERT_LOG_SCALE:g})", flush=True)
+    if n1 != N_E2E_GAUSSIANS or n2 != n1:
+        fail(f"convert: {n1} then {n2} Gaussians, expected {N_E2E_GAUSSIANS}")
+    if not (errs["xyz"] <= TOL_CONVERT_XYZ and errs["opacity"] <= TOL_CONVERT_OPACITY
+            and errs["log_scale"] <= TOL_CONVERT_LOG_SCALE):
+        fail(f"convert: the round trip is off: {errs}")
+    os.remove(splat)
+    os.remove(back)
+    return dict(to_splat_s=t1 - t0, to_ply_s=t2 - t1)
+
+
+def phase_splits(device, arrays):
+    """The e2e scene's 16 cameras at full width: the camera split on
+    [cuda:0] * 2, the depth-slab and 2-D sweeps on [cuda:0] * 4 (and all
+    three on every card where there are several), each run twice: the same
+    bits both times, and held to one device (the camera split exactly but
+    for the total's summation order, the slab sweeps as in phase 9).  Walls
+    beside the one-device sweep's, timed before and after them."""
+    import torch
+
+    from gs2pc_torch import pipeline
+    from gs2pc_torch.ops import rasterize as R
+    from gs2pc_torch.ops.projection import preprocess
+    from gs2pc_torch.parallel.gauss_shard import (
+        grid_2d,
+        render_sweep_2d,
+        render_sweep_gauss_sharded,
+    )
+    from gs2pc_torch.sweep import (
+        init_accumulators,
+        render_arrays,
+        render_sweep,
+        render_sweep_sharded,
+    )
+    from gs2pc_torch.utils.config import GaussPointCloudSettings, RenderConfig
+
+    g = scene_on_device(arrays, device)
+    cams = camera_batch(N_E2E_CAMERAS, E2E_WIDTH, E2E_HEIGHT, device, with_masks=True)
+    probe = R.TileConfig(width_pad=cams.width_pad, height_pad=cams.height_pad)
+    longest = 0
+    for i in range(cams.num_cameras):
+        prep = preprocess(g.xyz, g.covariance_factors(), g.opacities, g.keep_mask, cams.at(i),
+                          adaptive_radius=False)
+        keys, _ = R.sort_pairs(*R.duplicate_with_keys(prep, probe, circle_cull=False))
+        longest = max(longest, int(R.tile_ranges(keys, probe.num_tiles)[1].max()))
+        del keys, prep
+    render = RenderConfig(max_pairs_per_tile=longest + 1, compact_pairs=True,
+                          surface_compact=False)
+    cfg = pipeline.tile_config(GaussPointCloudSettings(render=render),
+                               cams.width_pad, cams.height_pad)
+    scene = render_arrays(g)
+
+    def timed(fn, *args, **kw):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        acc = fn(*args, **kw)
+        torch.cuda.synchronize()
+        return acc, time.perf_counter() - t0, launched()
+
+    one, one_first, _ = timed(render_sweep, scene, cams, cfg)
+    ref_adr = render_sweep(scene, cams, cfg, calc_surface_distance=False)
+    sd = init_accumulators(g.num_gaussians, device=device).min_surface_distance
+    for i in range(cams.num_cameras):
+        cam = cams.at(i)
+        ed = R.render_tile_camera(*scene, cam, cfg, calc_surface_distance=False).depth
+        sd = torch.minimum(sd, R.render_tile_camera(*scene, cam, cfg,
+                                                    surface_ed_override=ed.reshape(-1)).surf_dist)
+    ref_sd = ref_adr._replace(min_surface_distance=sd)
+
+    want_k1 = {"cameras": N_E2E_CAMERAS, f"gauss x{N_SPLIT_SLABS}":
+               3 * N_SPLIT_SLABS * N_E2E_CAMERAS, "2-D 2x2": 3 * 2 * N_E2E_CAMERAS}
+    splits = [("cameras", render_sweep_sharded, [device] * 2),
+              (f"gauss x{N_SPLIT_SLABS}", render_sweep_gauss_sharded, [device] * N_SPLIT_SLABS),
+              ("2-D 2x2", render_sweep_2d, [device] * N_SPLIT_SLABS)]
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        from gs2pc_torch.parallel import mesh
+
+        cards = mesh.devices(n_cards)
+        splits += [(f"cameras on {n_cards} cards", render_sweep_sharded, cards),
+                   (f"gauss on {n_cards} cards", render_sweep_gauss_sharded, cards),
+                   (f"2-D on {n_cards} cards", render_sweep_2d, cards)]
+        rows = len(grid_2d(cards))
+        want_k1 = dict(want_k1, **{f"gauss on {n_cards} cards": 3 * n_cards * N_E2E_CAMERAS,
+                                   f"2-D on {n_cards} cards":
+                                   3 * (n_cards // rows) * N_E2E_CAMERAS})
+    out = {}
+    for label, sweep, devices in splits:
+        runs = [timed(sweep, scene, cams, cfg, devices) for _ in range(2)]
+        for acc, _, launches in runs:
+            if launches["K1"] != want_k1[label] or launches["K2"] < 1:
+                fail(f"splits, {label}: launches {launches}, expected K1 {want_k1[label]}")
+        acc = runs[0][0]
+        for name in EXACT + ("total_contribution",):
+            if not torch.equal(getattr(acc, name), getattr(runs[1][0], name)):
+                fail(f"splits, {label}: {name} differs between two runs")
+        if label.startswith("cameras"):
+            for name in EXACT:
+                if not torch.equal(getattr(acc, name).to(device), getattr(one, name)):
+                    fail(f"splits, {label}: {name} differs from one device")
+            d = shard_diffs(acc, one)
+            if d["total_contribution"] > TOL_SHARD_CONTRIB:
+                fail(f"splits, {label}: total contribution off by {d['total_contribution']}")
+        else:
+            compare_sharded(acc, ref_adr, ref_sd, f"{label} sweep, {N_E2E_CAMERAS} cameras")
+        out[label] = [w for _, w, _ in runs]
+        print(f"splits, {label}: {N_E2E_CAMERAS} cameras at {E2E_WIDTH}x{E2E_HEIGHT}, run cap "
+              f"{cfg.run_cap}: walls {runs[0][1]:.4f} / {runs[1][1]:.4f}s; the same bits both "
+              f"times, held to one device; launches {runs[0][2]}", flush=True)
+    _, one_last, _ = timed(render_sweep, scene, cams, cfg)
+    out["one device"] = [one_first, one_last]
+    print(f"splits: the one-device sweep of the same cameras {one_first:.4f} / {one_last:.4f}s "
+          f"(before / after the splits)", flush=True)
+    return out
+
+
+def phase_dryrun(device):
+    """parallel.dryrun.dryrun_multichip(8) on [cuda:0] * 8, and on every card
+    of a machine with several."""
+    import torch
+
+    from gs2pc_torch.parallel.dryrun import dryrun_multichip
+
+    runs = [(N_DRYRUN_DEVICES, device)]
+    if torch.cuda.device_count() > 1:
+        runs.append((torch.cuda.device_count(), "cuda"))
+    for n, dev in runs:
+        reset_launches()
+        t0 = time.perf_counter()
+        verdicts = dryrun_multichip(n, dev)
+        wall = time.perf_counter() - t0
+        launches = launched()
+        if launches["K1"] < 1 or launches["K2"] < 1:
+            fail(f"dry run on {n} x {dev}: launches {launches}")
+        print(f"dry run on {n} x {dev}: {len(verdicts)} axes OK in {wall:.3f}s; launches "
+              f"{launches}", flush=True)
+
+
+def phase_forensics(device, work, oracle):
+    """pixel_forensics on the oracle phase's tile and oracle images (200k
+    Gaussians, 1280x720): the float64 truth at the 12 worst pixels."""
+    import numpy as np
+
+    from gs2pc_torch.tools import pixel_forensics
+
+    tile, dense = os.path.join(work, "tile.npz"), os.path.join(work, "oracle.npz")
+    np.savez(tile, image=oracle["tile_image"])
+    np.savez(dense, image=oracle["oracle_image"])
+    t0 = time.perf_counter()
+    recs = pixel_forensics.main([
+        "--tile_npz", tile, "--oracle_npz", dense, "--gaussians", str(N_ORACLE_GAUSSIANS),
+        "--seed", "0", "--width", str(E2E_WIDTH), "--height", str(E2E_HEIGHT),
+        "--worst", str(N_FORENSIC_PIXELS), "--device", str(device)])
+    wall = time.perf_counter() - t0
+    sides = {}
+    for r in recs:
+        sides[r["side"]] = sides.get(r["side"], 0) + 1
+    print(f"forensics: {len(recs)} worst pixels of the oracle phase in {wall:.3f}s (limit "
+          f"{FORENSICS_LIMIT_S:g}s): {sides}; largest |tile - truth| "
+          f"{max(r['err_tile'] for r in recs):.4g}, |oracle - truth| "
+          f"{max(r['err_oracle'] for r in recs):.4g}", flush=True)
+    if len(recs) != N_FORENSIC_PIXELS or not all(np.isfinite(r["truth"]).all() for r in recs):
+        fail("forensics: missing or non-finite records")
+    if wall > FORENSICS_LIMIT_S:
+        fail(f"forensics took {wall:.1f}s > {FORENSICS_LIMIT_S:g}s")
+    return dict(wall=wall, sides=sides)
+
+
 def main() -> int:
     import torch
 
@@ -1380,13 +1651,16 @@ def main() -> int:
         phase_sh(device, work, arrays, e2e["cols_u8"], *files)
         phase_mesh(device, work, e2e["ply"], *files)
         phase_auto_capacity(device, work, e2e["ply"], *files)
+        phase_preview(device, work, e2e["ply"], e2e["tj"])
+        phase_convert(work, e2e["ply"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
     ms, bounds, k1_err = phase_timing(device, arrays)
     slab = phase_slab(device, arrays)
     launches.update(phase_sharded(device, arrays))
+    phase_splits(device, arrays)
     del arrays
-    phase_oracle(device)
+    oracle = phase_oracle(device)
     work = os.path.join(REPO, "build", "chip_smoke_dense")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
@@ -1395,6 +1669,14 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     phase_covariances(device)
+    phase_dryrun(device)
+    work = os.path.join(REPO, "build", "chip_smoke_forensics")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        phase_forensics(device, work, oracle)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     def entry(name, source, replaces, n, err, t, plain, bound, launch=None, library=None):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -1,5 +1,5 @@
-""".splat binary loader (parity: gauss_dataloader.py:84-115); the port's
-copy of gs2pc.io.splat's reader (the port writes no .splat).
+""".splat binary loader (parity: gauss_dataloader.py:84-115) and writer;
+the port's copy of gs2pc.io.splat.
 
 Packed record layout: xyz f32x3 | scales f32x3 | rgba u8x4 | rot u8x4.
 """
@@ -36,3 +36,20 @@ def load_splat_gaussians(path: str):
     rots = rots / norm
     return xyz, log_scales, rots, colours, opacities, None
 
+
+
+def save_splat(path: str, xyz, log_scales, rots, colours, opacities) -> None:
+    """Write a .splat file (inverse of load; handy for tests and export)."""
+    n = len(xyz)
+    out = np.zeros(n, dtype=SPLAT_DTYPE)
+    out["xyz"] = np.asarray(xyz, np.float32)
+    out["scales"] = np.exp(np.asarray(log_scales, np.float32))
+    rgba = np.zeros((n, 4), np.uint8)
+    rgba[:, :3] = np.clip(np.asarray(colours) * 255.0, 0, 255).astype(np.uint8)
+    rgba[:, 3] = np.clip(np.asarray(opacities) * 255.0, 0, 255).astype(np.uint8)
+    out["colour"] = rgba
+    q = np.asarray(rots, np.float32)
+    q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
+    out["rots"] = np.clip(np.round(q * 128.0 + 128.0), 0, 255).astype(np.uint8)
+    with open(path, "wb") as fh:
+        fh.write(out.tobytes())

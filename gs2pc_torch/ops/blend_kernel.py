@@ -111,7 +111,7 @@ def blend_tiles(
         return blend_tiles_torch(table, sorted_gid, starts, counts, mask, **kw)
     if table.device.type != "cuda":
         raise ValueError(f"blend_tiles: unsupported device {table.device}")
-    from gs2pc_torch.ops.cuda_build import check, load_library, stream_ptr
+    from gs2pc_torch.ops.cuda_build import check, launch, load_library, stream_ptr
 
     lib = load_library()
     dev = table.device
@@ -136,7 +136,8 @@ def blend_tiles(
     contrib = torch.empty(P, dtype=torch.float32, device=dev)
     best_pix = torch.empty(P, dtype=torch.int64, device=dev)
     surf = torch.empty(P, dtype=torch.float32, device=dev)
-    rc = lib.gs2pc_blend_tiles(
+    rc = launch(
+        lib.gs2pc_blend_tiles, table,
         table.data_ptr(), sorted_gid.data_ptr() if sorted_gid.numel() else None,
         starts.data_ptr(), counts.data_ptr(), order.data_ptr(),
         *(None if t is None else t.data_ptr() for t in (mask, init_trans, ed_override)),

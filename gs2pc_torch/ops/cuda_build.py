@@ -190,3 +190,15 @@ def stream_ptr(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(entry, t, *args) -> int:
+    """Call the C entry point ``entry(*args)`` with ``t``'s device current
+    and return its cudaError_t: the runtime launches on the calling
+    thread's current device, which must be the device of the stream from
+    ``stream_ptr(t)`` (a sweep over several cards walks them from one
+    thread)."""
+    import torch
+
+    with torch.cuda.device(t.device):
+        return entry(*args)

@@ -128,3 +128,13 @@ def preprocess(
         tiles_touched=tiles_touched,
         valid=valid,
     )
+
+
+def mark_visible(means: torch.Tensor, viewmatrix: torch.Tensor,
+                 projmatrix: torch.Tensor) -> torch.Tensor:
+    """Frustum visibility check (gs2pc.ops.projection.mark_visible; parity:
+    markVisible, rasterize_points.cu:147-166): view-space z > NEAR_Z.  The
+    reference computes the NDC bound too but ignores it, so ``projmatrix``
+    is unused, as in the JAX package."""
+    del projmatrix
+    return dotrow3(means, viewmatrix[2, :3], viewmatrix[2, 3]) > NEAR_Z

@@ -90,7 +90,7 @@ def duplicate_with_keys(prep: Preprocessed, cfg: TileConfig, circle_cull: bool):
         return duplicate_with_keys_torch(prep, cfg, circle_cull)
     if dev.type != "cuda":
         raise ValueError(f"duplicate_with_keys: unsupported device {dev}")
-    from gs2pc_torch.ops.cuda_build import check, load_library, stream_ptr
+    from gs2pc_torch.ops.cuda_build import check, launch, load_library, stream_ptr
 
     lib = load_library()
     xy, r2, rmin, rmax, valid, depth = (
@@ -102,7 +102,8 @@ def duplicate_with_keys(prep: Preprocessed, cfg: TileConfig, circle_cull: bool):
     P = xy.shape[0]
     stream = stream_ptr(xy)
     counts = torch.empty(P, dtype=torch.int32, device=dev)
-    rc = lib.gs2pc_count_pairs(
+    rc = launch(
+        lib.gs2pc_count_pairs, xy,
         xy.data_ptr(), r2.data_ptr(), rmin.data_ptr(), rmax.data_ptr(), valid.data_ptr(),
         P, int(circle_cull), counts.data_ptr(), stream,
     )
@@ -112,7 +113,8 @@ def duplicate_with_keys(prep: Preprocessed, cfg: TileConfig, circle_cull: bool):
     total = int(ends[-1]) if P else 0
     keys = torch.empty(total, dtype=torch.int64, device=dev)
     gids = torch.empty(total, dtype=torch.int32, device=dev)
-    rc = lib.gs2pc_write_pairs(
+    rc = launch(
+        lib.gs2pc_write_pairs, xy,
         xy.data_ptr(), r2.data_ptr(), rmin.data_ptr(), rmax.data_ptr(), valid.data_ptr(),
         depth.data_ptr(), ends.data_ptr(), P, total, int(circle_cull), cfg.grid_w,
         keys.data_ptr() if total else None, gids.data_ptr() if total else None, stream,

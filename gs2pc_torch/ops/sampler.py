@@ -132,3 +132,41 @@ def sample_points(
     scales = torch.exp(gaussians.log_scales[gid])
     pts = gaussians.xyz[gid] + quat_rotate(gaussians.rots[gid], scales * z)
     return SampledPoints(points=pts, gaussian_idx=gid)
+
+
+def generate_pointcloud(
+    generator: torch.Generator,
+    gaussians,
+    num_points: int,
+    contributions: Optional[torch.Tensor] = None,
+    mahalanobis_std: float = 2.0,
+    exact_num_points: bool = False,
+    n_cap: Optional[int] = None,
+) -> SampledPoints:
+    """The whole point generation (gs2pc.ops.sampler.generate_pointcloud,
+    gauss_to_pc.py:277-371): size -> distribute -> flat sample, with the
+    draws from ``generator`` (JAX takes a key).  ``exact_num_points``
+    switches to largest-remainder quotas and a hard cap, so the cloud has
+    exactly ``num_points`` points."""
+    sizes = gaussians.magnitudes(contributions=contributions)
+    ppg = distribute_points(sizes, num_points, exact=exact_num_points)
+    if n_cap is None:
+        # Rounding can overshoot the budget by at most ~P/2; a 5% + 4096
+        # margin makes truncation practically impossible.
+        n_cap = int(num_points + max(4096, num_points // 20))
+    return sample_points(
+        gaussians, ppg, n_cap=n_cap, mahalanobis_std=mahalanobis_std,
+        max_points=num_points if exact_num_points else None, generator=generator,
+    )
+
+
+def mahalanobis(means: torch.Tensor, samples: torch.Tensor, covs: torch.Tensor) -> torch.Tensor:
+    """Explicit Mahalanobis distance sqrt(d^T Sigma^-1 d), d = means - samples
+    (gs2pc.ops.sampler.mahalanobis; parity: gauss_to_pc.py:92-103), for
+    (..., 3) points and (..., 3, 3) covariances.  The batched solve runs in
+    float64, whatever the caller's TF32 settings, and the distance comes
+    back in the inputs' dtype.  The sampler does not use it (its distance
+    is |z|)."""
+    delta = (means - samples).to(torch.float64)
+    sol = torch.linalg.solve(covs.to(torch.float64), delta[..., None])[..., 0]
+    return torch.sqrt(torch.clamp((delta * sol).sum(-1), min=0.0)).to(means.dtype)

@@ -5,8 +5,10 @@ host point cloud, and with --generate_mesh a second, surface point cloud
 
 Culled Gaussians stay in place with keep_mask False and get a zero point
 quota, as in the JAX package, so every cull predicate sees the initial set.
-The sampler runs on the first device; the JAX package's split of its point
-axis over the devices changes no value and is not ported yet.
+The sampler runs on the first device whatever the number of devices: the
+JAX package's split of its point axis changes no value, and placing the
+slots in blocks over the devices was slower than one device on an H100
+(PERF.md, Findings), so it is not ported.
 """
 
 from __future__ import annotations

@@ -7,8 +7,11 @@ package's ``tools/*.py``:
   ablate_psnr      the production knob matrix vs a cached banded oracle
   diff_map         where the tile render differs from the cached oracle
   bench_breakdown  per-stage card times of one camera and of the sweep
+  render_preview   preview images and depth maps of each camera, as PNG
+  convert_format   .ply <-> .splat (host numpy)
+  pixel_forensics  float64 per-pixel blend truth against tile and oracle images
 
 Run each as ``python -m gs2pc_torch.tools.<name> [--device cuda:0]``.
-Every tool takes ``--device`` (default ``cuda:0``) and never moves to the
-CPU by itself: ``--device cpu`` runs the kernels' twins.
+Every tool that renders takes ``--device`` (default ``cuda:0``) and never
+moves to the CPU by itself: ``--device cpu`` runs the kernels' twins.
 """

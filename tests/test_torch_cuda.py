@@ -595,3 +595,58 @@ def test_from_covariances_on_card_matches_cpu(cuda):
     scale = out[0][0].abs().amax(dim=(1, 2), keepdim=True)
     assert bool(((out[1][0] - out[0][0]).abs() <= 1e-5 * scale).all())
     assert torch.equal(out[1][1], out[0][1])
+
+
+@pytest.mark.parametrize("n_dev", [2, 4])
+@pytest.mark.parametrize("axis", ["cams", "gauss", "both"])
+def test_sharded_sweeps_on_card_equal_one_device(cuda, axis, n_dev):
+    """The sweeps on [cuda:0] * n on the dry run's scene and cameras (no
+    pair reaches the run cap): the same bits twice, and held to the
+    one-device sweep as the dry run holds them."""
+    from gs2pc_torch.parallel import dryrun
+    from gs2pc_torch.parallel.gauss_shard import render_sweep_2d, render_sweep_gauss_sharded
+    from gs2pc_torch.sweep import render_arrays, render_sweep, render_sweep_sharded
+
+    sweep = {"cams": render_sweep_sharded, "gauss": render_sweep_gauss_sharded,
+             "both": render_sweep_2d}[axis]
+    scene = render_arrays(dryrun.tiny_scene(device=cuda))
+    cams = dryrun.tiny_cameras(3, device=cuda)
+    cfg = R.TileConfig(width_pad=cams.width_pad, height_pad=cams.height_pad, compact=True,
+                       surface_compact=True)
+    acc = sweep(scene, cams, cfg, [cuda] * n_dev)
+    again = sweep(scene, cams, cfg, [cuda] * n_dev)
+    for name in dryrun.ACCUMULATORS:
+        assert torch.equal(getattr(acc, name), getattr(again, name)), name
+    one = render_sweep(scene, cams, cfg)
+    d = dryrun.accumulator_diffs(acc, one)
+    assert dryrun._exact_ok(d) if axis == "cams" else dryrun._slab_ok(d, acc, one), d
+
+
+def test_render_preview_on_card_equals_render_camera(cuda, tmp_path):
+    from gs2pc_torch.sweep import render_camera
+    from gs2pc_torch.tools import render_preview
+    from gs2pc_torch.utils.imaging import imread_png, to_u8
+
+    transforms, intr = capture.make_poses(2, 128, 96)
+    ply, tj, _ = capture.write_capture(str(tmp_path), capture.make_scene_arrays(5000, seed=4),
+                                       transforms, intr, with_masks=False)
+    out = tmp_path / "previews"
+    before = (B.blend_tiles.launches, R.duplicate_with_keys.launches)
+    written = render_preview.main(["--input_path", ply, "--transform_path", tj, "--out_dir",
+                                   str(out), "--colour_quality", "original", "--depth",
+                                   "--device", "cuda:0"])
+    assert len(written) == 4
+    launched = (B.blend_tiles.launches - before[0], R.duplicate_with_keys.launches - before[1])
+    assert launched == (2, 4)
+    scene = render_preview.scene_arrays(render_preview.load_gaussians(ply, device=cuda))
+    cams = build_camera_batch(*render_preview.load_transform_data(tj), device=cuda)
+    cfg = R.TileConfig(width_pad=cams.width_pad, height_pad=cams.height_pad)
+    for i, name in enumerate(sorted(transforms)):
+        cam = cams.at(i)
+        o = render_camera(scene, cam, cfg, calc_surface_distance=False)
+        h, w = cam.height, cam.width
+        np.testing.assert_array_equal(imread_png(str(out / f"{name}.png")),
+                                      to_u8(o.image[:h, :w].cpu().numpy()))
+        np.testing.assert_array_equal(
+            imread_png(str(out / f"{name}_depth.png")),
+            to_u8(render_preview.normalised_depth(o.depth[:h, :w].cpu().numpy())))

@@ -1,10 +1,12 @@
 """The port's copies of JAX-package host modules against their sources:
 the CLI parser and settings, the PLY / .splat / transforms.json readers,
+the .splat writer, the quota bin-size heuristic,
 the g++-built PLY expand-writer, the capture helpers of bench.py, the sweep
 checkpoint, and the native mesher (meshing_native.py and the g++-built
 mesher.cpp).  A drifted copy would be a silent fault, so each is pinned
 here."""
 
+import inspect
 import os
 import types
 
@@ -18,12 +20,14 @@ from gs2pc import meshing_native as jax_native
 from gs2pc.io import ply as jax_ply
 from gs2pc.io import splat as jax_splat
 from gs2pc.io import transforms_json as jax_tj
+from gs2pc.ops import binning as jax_binning
 from gs2pc.parallel.sweep import SweepAccumulators as JaxAccumulators
 from gs2pc.utils import checkpoint as jax_checkpoint
 from gs2pc.utils import config as jax_config
 from gs2pc_torch import meshing_native
 from gs2pc_torch.io import ply, splat, transforms_json
 from gs2pc_torch.io.ply import PointCloud, save_point_cloud_ply
+from gs2pc_torch.ops import binning
 from gs2pc_torch.sweep import SweepAccumulators
 from gs2pc_torch.utils import capture, checkpoint, config
 from tests.fixture_scene import write_capture
@@ -110,6 +114,30 @@ def test_readers_match_jax(fixture_files):
             np.testing.assert_array_equal(a, b)
     assert (transforms_json.load_transform_json_data(paths["transforms"], skip_rate=1)
             == jax_tj.load_transform_json_data(paths["transforms"], skip_rate=1))
+
+
+def test_splat_writer_matches_jax_bytes(fixture_files, tmp_path):
+    """save_splat on the fixture's scene and on out-of-range colours,
+    opacities and unnormalised rotations: the JAX writer's bytes."""
+    _, splat_path = fixture_files
+    arrays = splat.load_splat_gaussians(splat_path)[:5]
+    r = np.random.default_rng(8)
+    q = r.normal(size=(64, 4)).astype(np.float32) * 3.0
+    wild = (r.normal(size=(64, 3)), r.uniform(-6, 1, (64, 3)), q,
+            r.uniform(-0.5, 1.5, (64, 3)), r.uniform(-0.5, 1.5, 64))
+    for i, a in enumerate((arrays, wild)):
+        ours, theirs = tmp_path / f"ours{i}.splat", tmp_path / f"theirs{i}.splat"
+        splat.save_splat(str(ours), *a)
+        jax_splat.save_splat(str(theirs), *a)
+        assert ours.read_bytes() == theirs.read_bytes()
+
+
+@pytest.mark.parametrize("name", ["save_splat", "calculate_bin_sizes"])
+def test_copied_functions_are_the_jax_source(name):
+    """save_splat and calculate_bin_sizes are the JAX package's, line for line."""
+    ours, theirs = {"save_splat": (splat, jax_splat),
+                    "calculate_bin_sizes": (binning, jax_binning)}[name]
+    assert inspect.getsource(getattr(ours, name)) == inspect.getsource(getattr(theirs, name))
 
 
 def test_ascii_ply_reader_matches_jax(tmp_path):

@@ -197,18 +197,35 @@ def test_port_never_imports_jax(capture, tmp_path):
     assert "NO_JAX_OK" in proc.stdout
 
 
-def test_port_tools_never_import_jax():
+def test_port_tools_never_import_jax(capture, tmp_path):
     """Every module of gs2pc_torch.tools imports, and cuda_probe /
-    cuda_probe2 run on the CPU, without JAX, the bench harness, gs2pc or the
-    JAX package's tools/."""
-    script = textwrap.dedent("""
+    cuda_probe2, render_preview, convert_format, pixel_forensics and the
+    multi-device dry run run on the CPU, without JAX, the bench harness,
+    gs2pc or the JAX package's tools/."""
+    out = str(tmp_path)
+    script = textwrap.dedent(f"""
         import importlib, pkgutil, sys
+        import numpy as np
         import gs2pc_torch.tools as T
         for m in pkgutil.iter_modules(T.__path__):
-            importlib.import_module(f"gs2pc_torch.tools.{m.name}")
-        from gs2pc_torch.tools import cuda_probe, cuda_probe2
+            importlib.import_module(f"gs2pc_torch.tools.{{m.name}}")
+        from gs2pc_torch.parallel.dryrun import dryrun_multichip
+        from gs2pc_torch.tools import (convert_format, cuda_probe, cuda_probe2,
+                                       pixel_forensics, render_preview)
         assert all(r["ok"] for r in cuda_probe.main(["--device", "cpu"]).values())
         assert all(r["ok"] for r in cuda_probe2.main(["--device", "cpu", "--input", "seeded"]).values())
+        assert len(render_preview.main(["--input_path", {capture['ply']!r}, "--transform_path",
+                                        {capture['transforms']!r}, "--out_dir", {out!r},
+                                        "--max_images", "1", "--colour_quality", "tiny",
+                                        "--device", "cpu"])) == 1
+        assert convert_format.main([{capture['ply']!r}, {out + '/s.splat'!r}]) > 0
+        img = np.full((64, 64, 3), 0.5, np.float32)
+        np.savez({out + '/img.npz'!r}, image=img)
+        recs = pixel_forensics.main(["--tile_npz", {out + '/img.npz'!r}, "--oracle_npz",
+                                     {out + '/img.npz'!r}, "--gaussians", "100", "--width", "64",
+                                     "--height", "64", "--worst", "1", "--device", "cpu"])
+        assert len(recs) == 1
+        dryrun_multichip(2, "cpu")
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "bench", "gs2pc", "tools"))
         assert not bad, bad
@@ -221,7 +238,10 @@ def test_port_tools_never_import_jax():
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "NO_JAX_OK" in proc.stdout and proc.stdout.count(": OK") == 16
+    lines = proc.stdout.splitlines()
+    assert "NO_JAX_OK" in proc.stdout
+    assert sum(": OK" in ln and not ln.startswith("dryrun") for ln in lines) == 16
+    assert sum(ln.startswith("dryrun_multichip(2)") and ": OK;" in ln for ln in lines) == 3
 
 
 def test_cli_refuses_to_run_without_cuda(capture, tmp_path):
