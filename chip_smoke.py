@@ -1,7 +1,8 @@
 """Smoke test of gs2pc_torch on CUDA GPUs: builds the kernels, holds each
 against its plain PyTorch twin in every mode, runs the production
 conversion end to end through ``gs2pc_torch.cli.main``, runs the three
-multi-device sweeps at full width, and checks what they produce.
+multi-device sweeps at full width, as one-thread walks and as SPMD programs
+of one process per device, and checks what they produce.
 
     python3 chip_smoke.py
 
@@ -19,8 +20,10 @@ Phases (each prints one line or more; any failure exits non-zero):
                under both surface_compact settings, compact on and off
   6. e2e       the capture of gs2pc_torch.utils.capture (3M Gaussians, 16
                cameras at 1280x720, masks) -> 10M points with surface
-               distances on, through the native PLY writer; with more than
-               one card, also --num_devices <cards> --shard_axis gauss
+               distances on, through the native PLY writer; the CLI at
+               its default --num_devices 0, so on a machine with several
+               cards this and every later CLI phase sweeps one process per
+               card, and the launches checked are those of every rank
   7. timing    K1 and K2 on camera 0 of that scene, the shape the main path
                gives them: held against their twins with the bounds of
                phases 3-4 (K2 before and after the sort), then timed against
@@ -83,6 +86,17 @@ Phases (each prints one line or more; any failure exits non-zero):
  22. forensics gs2pc_torch.tools.pixel_forensics on phase 11's tile and
                oracle images: the float64 truth at the 12 worst pixels, which
                side is wrong; under 60 s
+ 23. spmd      phase 20's sweeps as SPMD programs, one process per rank
+               (parallel/launch.py; collectives of parallel/group.py): the
+               camera split on [cuda:0] * 2, the depth-slab and 2-D sweeps on
+               [cuda:0] * 4 through gloo (and all three over every card
+               through NCCL on a machine with several), each bit-equal to its
+               walk, held to one device, every rank's K1 launches its share;
+               walls and the spawned ranks' bring-up.  With several cards
+               also the CLI at --num_devices 0 and --shard_axis gauss, PLYs
+               byte-equal to the walk's, K1 and K2 launched 16 and 32 times
+               (3 x cards times that on the slabs) over all the ranks, and
+               a rank that raises over NCCL
 The line before the last is the kernels' JSON record (max_abs_err at the
 shape of phases 7-8 and 10; ms the time through the wrapper, also given as
 wrapper_ms, and launch_ms the launch alone, K2's count + write; K3 as the
@@ -472,17 +486,34 @@ def check_cloud(result, out: str, label: str) -> int:
 def reset_launches() -> None:
     from gs2pc_torch.ops import blend_kernel as B
     from gs2pc_torch.ops import rasterize as R
+    from gs2pc_torch.parallel import launch
 
     B.blend_tiles.launches = 0
     R.duplicate_with_keys.launches = 0
+    launch.RANK_LAUNCHES.clear()
 
 
 def read_launches() -> dict:
-    from gs2pc_torch.ops import blend_kernel as B
-    from gs2pc_torch.ops import rasterize as R
+    """K1's and K2's launches since reset_launches(), this process's and
+    those of the ranks it spawned (one process per card of a multi-card
+    sweep) together."""
+    from gs2pc_torch.parallel import launch
 
-    return {"blend_tiles": B.blend_tiles.launches,
-            "duplicate_with_keys": R.duplicate_with_keys.launches}
+    total = launch.kernel_launches()
+    for counts in launch.RANK_LAUNCHES.values():
+        for name in total:
+            total[name] += counts[name]
+    return total
+
+
+def launches_by_rank() -> list:
+    """[K1, K2] launches of each rank since reset_launches(), rank 0 (this
+    process) first."""
+    from gs2pc_torch.parallel import launch
+
+    ranks = [launch.kernel_launches()] + [launch.RANK_LAUNCHES[r]
+                                          for r in sorted(launch.RANK_LAUNCHES)]
+    return [[c["blend_tiles"], c["duplicate_with_keys"]] for c in ranks]
 
 
 def e2e_argv(ply, tj, mask_dir, out, n_points=None):
@@ -492,10 +523,7 @@ def e2e_argv(ply, tj, mask_dir, out, n_points=None):
 
 
 def phase_e2e(device, work):
-    import torch
-
     from gs2pc_torch import cli
-    from gs2pc_torch.ops import blend_kernel as B
     from gs2pc_torch.utils import capture, log
 
     t0 = time.perf_counter()
@@ -533,21 +561,6 @@ def phase_e2e(device, work):
           f"{result.sweep_diag}; max sampled |z| {zmax:.4f}; phases {json.dumps(phases)}",
           flush=True)
 
-    n_cards = torch.cuda.device_count()
-    if n_cards > 1:
-        out_n = os.path.join(work, "cloud_gauss.ply")
-        B.blend_tiles.launches = 0
-        t0 = time.perf_counter()
-        res_n = cli.main(argv(out_n) + ["--num_devices", str(n_cards), "--shard_axis", "gauss"])
-        wall_n = time.perf_counter() - t0
-        n_file = check_cloud(res_n, out_n, f"e2e on {n_cards} cards")
-        if B.blend_tiles.launches != 3 * n_cards * N_E2E_CAMERAS:
-            fail(f"K1 launched {B.blend_tiles.launches} times on the depth-slab path, "
-                 f"expected {3 * n_cards * N_E2E_CAMERAS}")
-        print(f"e2e --num_devices {n_cards} --shard_axis gauss: {n_file} points in "
-              f"{wall_n:.2f}s; counters {res_n.sweep_diag}", flush=True)
-    else:
-        print("e2e on more than one card: skipped, this machine has one card", flush=True)
     os.remove(out)
     return arrays, launches, dict(ply=ply, tj=tj, masks=mask_dir, cols_u8=result.cloud.cols_u8)
 
@@ -1010,7 +1023,6 @@ def phase_dense_cli(device, work):
     import numpy as np
 
     from gs2pc_torch import cli
-    from gs2pc_torch.ops import blend_kernel as B
     from gs2pc_torch.utils import capture
 
     arrays = capture.make_scene_arrays(N_DENSE_CLI_GAUSSIANS, seed=5)
@@ -1022,13 +1034,14 @@ def phase_dense_cli(device, work):
         return ["--input_path", ply, "--transform_path", tj, "--mask_path", mask_dir,
                 "--output_path", out, "--num_points", "200000", "--seed", "0", "--quiet"]
 
-    B.blend_tiles.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     dense = cli.main(argv(os.path.join(work, "dense.ply"))
                      + ["--renderer_type", "dense", "--profile_dir", prof])
     wall = time.perf_counter() - t0
-    if B.blend_tiles.launches != 0:
-        fail(f"the dense CLI launched K1 {B.blend_tiles.launches} times")
+    k1 = read_launches()["blend_tiles"]
+    if k1 != 0:
+        fail(f"the dense CLI launched K1 {k1} times")
     n_dense = check_cloud(dense, os.path.join(work, "dense.ply"), "dense CLI")
     trace = os.path.join(prof, cli.TRACE_NAME)
     if not os.path.exists(trace):
@@ -1518,29 +1531,22 @@ def phase_splits(device, arrays):
                    (f"gauss on {n_cards} cards", render_sweep_gauss_sharded, cards),
                    (f"2-D on {n_cards} cards", render_sweep_2d, cards)]
         rows = len(grid_2d(cards))
-        want_k1 = dict(want_k1, **{f"gauss on {n_cards} cards": 3 * n_cards * N_E2E_CAMERAS,
+        want_k1 = dict(want_k1, **{f"cameras on {n_cards} cards": N_E2E_CAMERAS,
+                                   f"gauss on {n_cards} cards": 3 * n_cards * N_E2E_CAMERAS,
                                    f"2-D on {n_cards} cards":
                                    3 * (n_cards // rows) * N_E2E_CAMERAS})
-    out = {}
+    out, walks = {}, {}
     for label, sweep, devices in splits:
         runs = [timed(sweep, scene, cams, cfg, devices) for _ in range(2)]
         for acc, _, launches in runs:
             if launches["K1"] != want_k1[label] or launches["K2"] < 1:
                 fail(f"splits, {label}: launches {launches}, expected K1 {want_k1[label]}")
         acc = runs[0][0]
-        for name in EXACT + ("total_contribution",):
-            if not torch.equal(getattr(acc, name), getattr(runs[1][0], name)):
-                fail(f"splits, {label}: {name} differs between two runs")
-        if label.startswith("cameras"):
-            for name in EXACT:
-                if not torch.equal(getattr(acc, name).to(device), getattr(one, name)):
-                    fail(f"splits, {label}: {name} differs from one device")
-            d = shard_diffs(acc, one)
-            if d["total_contribution"] > TOL_SHARD_CONTRIB:
-                fail(f"splits, {label}: total contribution off by {d['total_contribution']}")
-        else:
-            compare_sharded(acc, ref_adr, ref_sd, f"{label} sweep, {N_E2E_CAMERAS} cameras")
+        if not same_bits(acc, runs[1][0]):
+            fail(f"splits, {label}: the accumulators differ between two runs")
+        hold_split(f"splits, {label}", acc, one, ref_adr, ref_sd)
         out[label] = [w for _, w, _ in runs]
+        walks[label] = acc
         print(f"splits, {label}: {N_E2E_CAMERAS} cameras at {E2E_WIDTH}x{E2E_HEIGHT}, run cap "
               f"{cfg.run_cap}: walls {runs[0][1]:.4f} / {runs[1][1]:.4f}s; the same bits both "
               f"times, held to one device; launches {runs[0][2]}", flush=True)
@@ -1548,7 +1554,178 @@ def phase_splits(device, arrays):
     out["one device"] = [one_first, one_last]
     print(f"splits: the one-device sweep of the same cameras {one_first:.4f} / {one_last:.4f}s "
           f"(before / after the splits)", flush=True)
+    return dict(walls=out, walks=walks, scene=scene, cams=cams, cfg=cfg, one=one,
+                ref_adr=ref_adr, ref_sd=ref_sd)
+
+
+def spmd_bringup() -> dict:
+    """The spawned ranks' bring-up and sweep phases, the slowest rank's
+    (launch files them as rank<r>/<phase>), with rank 0's group formation."""
+    from gs2pc_torch.utils import log
+
+    out = {"rank0 spmd_group_init": log.PHASE_SECONDS.get("spmd_group_init", 0.0)}
+    for key, seconds in log.PHASE_SECONDS.items():
+        if key.startswith("rank"):
+            name = key.split("/", 1)[1]
+            out[name] = round(max(out.get(name, 0.0), seconds), 4)
     return out
+
+
+def phase_spmd(device, splits, e2e, work):
+    """The SPMD sweeps (one process per rank, gs2pc_torch.parallel.launch)
+    of phase 20's 16 cameras at full width: the camera split on
+    [cuda:0] * 2 and the depth-slab and 2-D sweeps on [cuda:0] * 4 through
+    gloo, and all three over every card through NCCL where there are
+    several; each bit-equal to phase 20's walk on the same devices and held
+    to one device as phase 20 holds the walks, every rank's K1 launches as
+    its share asks.  Walls (rank 0, the card synchronised) beside the
+    walks', and the spawned ranks' bring-up.  On several cards also the CLI
+    at --num_devices 0 (cameras) and --shard_axis gauss, each PLY byte-equal
+    to the walk's conversion, and a rank that raises over NCCL."""
+    import multiprocessing
+
+    import torch
+
+    from gs2pc_torch.parallel import dryrun, launch, mesh
+    from gs2pc_torch.parallel.mesh import split_evenly
+    from gs2pc_torch.utils import log
+
+    n_cards = torch.cuda.device_count()
+    cams_k1 = [hi - lo for lo, hi in split_evenly(N_E2E_CAMERAS, 2)]
+    rows = [hi - lo for lo, hi in split_evenly(N_E2E_CAMERAS, 2)]
+    groups = [([device] * 2, [("cams", "cameras", cams_k1)]),
+              ([device] * N_SPLIT_SLABS,
+               [("gauss", f"gauss x{N_SPLIT_SLABS}", [3 * N_E2E_CAMERAS] * N_SPLIT_SLABS),
+                ("both", "2-D 2x2", [3 * rows[r // 2] for r in range(4)])])]
+    if n_cards > 1:
+        from gs2pc_torch.parallel.gauss_shard import grid_2d
+
+        cards = mesh.devices(n_cards)
+        grid = grid_2d(cards)
+        g = len(grid[0])
+        blocks = [hi - lo for lo, hi in split_evenly(N_E2E_CAMERAS, len(grid))]
+        groups.append((cards, [
+            ("cams", f"cameras on {n_cards} cards",
+             [hi - lo for lo, hi in split_evenly(N_E2E_CAMERAS, n_cards)]),
+            ("gauss", f"gauss on {n_cards} cards", [3 * N_E2E_CAMERAS] * n_cards),
+            ("both", f"2-D on {n_cards} cards", [3 * blocks[r // g] for r in range(n_cards)]),
+        ]))
+    out = {}
+    for devices, jobs in groups:
+        root = (splits["scene"], splits["cams"], None)
+        log.reset_phases()
+        t0 = time.perf_counter()
+        res = launch.run(launch.in_turn, devices,
+                         [(dryrun.sweep_rank, (split, splits["cfg"])) for split, _, _ in jobs],
+                         root=[root] * len(jobs))
+        wall = time.perf_counter() - t0
+        bringup = spmd_bringup()
+        backend = "nccl" if len(set(devices)) > 1 else "gloo"
+        for (split, label, want_k1), (acc, sweep_wall, launches) in zip(jobs, res):
+            if not same_bits(acc, splits["walks"][label]):
+                fail(f"spmd, {label}: the SPMD sweep differs from the walk")
+            hold_split(f"spmd, {label}", acc, splits["one"], splits["ref_adr"],
+                       splits["ref_sd"])
+            if [k1 for k1, _ in launches] != want_k1 or min(k2 for _, k2 in launches) < 1:
+                fail(f"spmd, {label}: launches per rank {launches}, expected K1 {want_k1}")
+            out[label] = sweep_wall
+            print(f"spmd, {label}: {len(devices)} ranks over {backend}, {N_E2E_CAMERAS} cameras "
+                  f"at {E2E_WIDTH}x{E2E_HEIGHT}: sweep wall {sweep_wall:.4f}s (the walk "
+                  f"{splits['walls'][label][0]:.4f} / {splits['walls'][label][1]:.4f}s); "
+                  f"bit-equal to the walk, held to one device; [K1, K2] per rank {launches}",
+                  flush=True)
+        print(f"spmd: {len(devices)} ranks, {len(jobs)} sweep(s) in {wall:.3f}s with the spawn; "
+              f"bring-up {json.dumps(bringup)}", flush=True)
+    if n_cards > 1:
+        out.update(spmd_cli(device, e2e, work, n_cards))
+        t0 = time.perf_counter()
+        try:
+            launch.run(dryrun.fail_on_rank, cards, n_cards - 1, timeout=120)
+        except dryrun.PlantedFailure as exc:
+            wall = time.perf_counter() - t0
+            left = multiprocessing.active_children()
+            if left:
+                fail(f"spmd: ranks left running after a failed rank: {left}")
+            print(f"spmd: a rank that raises over NCCL fails the run in {wall:.2f}s: {exc}",
+                  flush=True)
+        else:
+            fail("spmd: a planted failure on the last card did not fail the run")
+    return out
+
+
+def spmd_cli(device, e2e, work, n_cards: int) -> dict:
+    """The e2e CLI on every card: at --num_devices 0 (the camera split) and
+    at --shard_axis gauss, one process per card over NCCL; each PLY
+    byte-equal to the walk's conversion written by the same writer, K1 and
+    K2 launched as often over all the ranks as the split asks (16 and 32 on
+    the cameras, 3 x cards times that on the slabs); walls and bring-up."""
+    from gs2pc_torch import cli, pipeline
+    from gs2pc_torch.io.ply import save_point_cloud_ply
+    from gs2pc_torch.utils import log
+    from gs2pc_torch.utils.config import parse_args, settings_from_args
+
+    out = {}
+    for extra, label, want_k1 in (
+            (["--num_devices", "0"], "--num_devices 0", N_E2E_CAMERAS),
+            (["--num_devices", str(n_cards), "--shard_axis", "gauss"],
+             f"--num_devices {n_cards} --shard_axis gauss", 3 * n_cards * N_E2E_CAMERAS)):
+        ply, walk_ply = os.path.join(work, "spmd.ply"), os.path.join(work, "walk.ply")
+        argv = e2e_argv(e2e["ply"], e2e["tj"], e2e["masks"], ply) + [
+            "--surface_distance_std", "1e6"] + extra
+        log.reset_phases()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = cli.main(argv)
+        wall = time.perf_counter() - t0
+        phases = {k: round(v, 4) for k, v in log.PHASE_SECONDS.items()}
+        launches, by_rank = launched(), launches_by_rank()
+        if launches != {"K1": want_k1, "K2": 2 * want_k1} or len(by_rank) != n_cards:
+            fail(f"spmd CLI {label}: launches {launches} over {len(by_rank)} ranks "
+                 f"{by_rank}, expected K1 {want_k1} and K2 {2 * want_k1} over {n_cards}")
+        n_file = check_cloud(res, ply, f"spmd CLI {label}")
+        args = parse_args(argv)
+        walk = pipeline._convert_walked(
+            e2e["ply"], e2e["tj"], e2e["masks"], settings_from_args(args), device=device,
+            num_devices=args.num_devices)
+        save_point_cloud_ply(walk.cloud, walk_ply, chunk_size=10**6)
+        if not files_equal(ply, walk_ply):
+            fail(f"spmd CLI {label}: the PLY differs from the walk's")
+        if walk.sweep_diag != res.sweep_diag:
+            fail(f"spmd CLI {label}: counters {res.sweep_diag} vs the walk's {walk.sweep_diag}")
+        os.remove(ply)
+        os.remove(walk_ply)
+        out[f"cli {label}"] = wall
+        print(f"spmd CLI {label}: {n_file} points in {wall:.3f}s, PLY byte-equal to the walk's; "
+              f"launches {launches}, [K1, K2] per rank {by_rank}; phases {json.dumps(phases)}",
+              flush=True)
+    return out
+
+
+def same_bits(a, b) -> bool:
+    """Every accumulator of ``a`` equal to ``b``'s, bit for bit."""
+    import torch
+
+    return all(torch.equal(getattr(a, n), getattr(b, n).to(getattr(a, n).device))
+               for n in EXACT + ("total_contribution",))
+
+
+def hold_split(label: str, acc, one, ref_adr, ref_sd) -> None:
+    """Hold a split's accumulators to one device: the camera split exactly
+    but for the total's summation order, a depth-slab or 2-D split as
+    compare_sharded does."""
+    import torch
+
+    if "cameras" in label:
+        for name in EXACT:
+            if not torch.equal(getattr(acc, name).to(one.max_contribution.device),
+                               getattr(one, name)):
+                fail(f"{label}: {name} differs from one device")
+        d = shard_diffs(acc.to(one.max_contribution.device), one)
+        if d["total_contribution"] > TOL_SHARD_CONTRIB:
+            fail(f"{label}: total contribution off by {d['total_contribution']}")
+    else:
+        compare_sharded(acc.to(one.max_contribution.device), ref_adr, ref_sd,
+                        f"{label} sweep, {N_E2E_CAMERAS} cameras")
 
 
 def phase_dryrun(device):
@@ -1653,13 +1830,15 @@ def main() -> int:
         phase_auto_capacity(device, work, e2e["ply"], *files)
         phase_preview(device, work, e2e["ply"], e2e["tj"])
         phase_convert(work, e2e["ply"])
+        ms, bounds, k1_err = phase_timing(device, arrays)
+        slab = phase_slab(device, arrays)
+        launches.update(phase_sharded(device, arrays))
+        splits = phase_splits(device, arrays)
+        del arrays
+        phase_spmd(device, splits, e2e, work)
+        del splits
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    ms, bounds, k1_err = phase_timing(device, arrays)
-    slab = phase_slab(device, arrays)
-    launches.update(phase_sharded(device, arrays))
-    phase_splits(device, arrays)
-    del arrays
     oracle = phase_oracle(device)
     work = os.path.join(REPO, "build", "chip_smoke_dense")
     shutil.rmtree(work, ignore_errors=True)

@@ -98,12 +98,12 @@ class Camera:
         """This camera's tensors on ``device`` (no copy where they already are)."""
         return dataclasses.replace(self, **{
             f: getattr(self, f).to(device)
-            for f in _TENSOR_FIELDS if getattr(self, f) is not None
+            for f in CAMERA_TENSORS if getattr(self, f) is not None
         })
 
 
 # The tensor fields of Camera and CameraBatch.
-_TENSOR_FIELDS = (
+CAMERA_TENSORS = (
     "viewmatrix", "projmatrix", "campos", "tanfovx", "tanfovy", "focal_x", "focal_y", "mask",
 )
 
@@ -151,7 +151,7 @@ class CameraBatch:
             heights=self.heights[lo:hi],
             **{
                 f: getattr(self, f)[lo:hi].to(device)
-                for f in _TENSOR_FIELDS if getattr(self, f) is not None
+                for f in CAMERA_TENSORS if getattr(self, f) is not None
             },
         )
 

@@ -2,7 +2,8 @@
 port's copy of its parser, gs2pc_torch.utils.config), run on CUDA devices:
 ``cuda:0`` for everything, and ``cuda:0 .. cuda:N-1`` for the camera sweep
 with ``--num_devices N`` (0, the default, means every card) on the axis
-``--shard_axis cams|gauss|both`` names.  ``--profile_dir DIR`` writes a
+``--shard_axis cams|gauss|both`` names, one process per card over NCCL
+(this process is rank 0 and runs everything else).  ``--profile_dir DIR`` writes a
 torch.profiler Chrome trace of the conversion (CPU and CUDA activities,
 the pipeline phases as named ranges) to DIR/TRACE_NAME.  After the
 conversion, as in ``python -m gs2pc``: ``--clean_pointcloud`` removes the

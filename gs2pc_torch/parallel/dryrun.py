@@ -4,15 +4,19 @@ one-device run, with one verdict line per axis.
 
     python -m gs2pc_torch.parallel.dryrun [--devices 8] [--device cuda:0]
 
-The JAX package re-executes itself on a virtual CPU mesh; here the devices
-are a list, so the run stays in-process: ``[device] * n`` (a split on one
-card or on the CPU), or the first n cards for a bare ``cuda``.  Four
-phases, as in the JAX dry run: the camera split, the sampler (4096 points,
-n_cap 8192, from the camera split's contributions), the depth-slab sweep
-and, for n >= 4, the 2-D sweep.  Each sweep prints the largest absolute
-difference of every accumulator from the one-device run and raises when
-it differs beyond its bound: the camera split is exact (the total
-contribution within f32 summation order); the depth-slab and 2-D sweeps
+The JAX package re-executes itself on a virtual CPU mesh and runs its
+``shard_map`` programs there; here the devices are a list, ``[device] * n``
+(a split on one card or on the CPU), or the first n cards for a bare
+``cuda``, and each split runs twice: as the one-thread walk, and as the
+SPMD program, one process per device (gs2pc_torch.parallel.launch; gloo
+for a repeated device, NCCL over distinct cards), which must equal the
+walk bit for bit.  Four phases, as in the JAX dry run: the camera split,
+the sampler (4096 points, n_cap 8192, from the camera split's
+contributions), the depth-slab sweep and, for n >= 4, the 2-D sweep.  Each
+sweep prints the largest absolute difference of every accumulator from
+the one-device run and raises when it differs beyond its bound: the
+camera split is exact (the total contribution within f32 summation
+order); the depth-slab and 2-D sweeps
 are held to tests/test_sharding.py's bounds, with their drop counters
 equal (their pairs-blended count differs: slab passes 1-2 blend with the
 adaptive radius, as in the JAX package).  The port's sampler runs on
@@ -24,6 +28,7 @@ here also all finite.
 from __future__ import annotations
 
 import argparse
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -34,9 +39,16 @@ from gs2pc_torch.models.gaussians import Gaussians
 from gs2pc_torch.ops.blend import FLOAT_MAX
 from gs2pc_torch.ops.rasterize import TileConfig
 from gs2pc_torch.ops.sampler import distribute_points, sample_points
-from gs2pc_torch.parallel import mesh
-from gs2pc_torch.parallel.gauss_shard import render_sweep_2d, render_sweep_gauss_sharded
-from gs2pc_torch.sweep import render_arrays, render_sweep, render_sweep_sharded
+from gs2pc_torch.parallel import gauss_shard, launch, mesh
+from gs2pc_torch.parallel.group import backend_for
+from gs2pc_torch.sweep import (
+    broadcast_sweep_inputs,
+    render_arrays,
+    render_sweep,
+    render_sweep_sharded,
+    render_sweep_spmd,
+)
+from gs2pc_torch.utils import log
 
 N_GAUSSIANS = 256
 SIZE = 64
@@ -53,6 +65,51 @@ TOL_COLOUR = 1e-3
 COLOUR_SHARE = 0.97
 ACCUMULATORS = ("max_contribution", "colours", "total_contribution", "min_surface_distance",
                 "n_dropped")
+# Each split (--shard_axis) as a walk and as an SPMD program.
+WALKS = {"cams": render_sweep_sharded, "gauss": gauss_shard.render_sweep_gauss_sharded,
+         "both": gauss_shard.render_sweep_2d}
+SPMD = {"cams": render_sweep_spmd, "gauss": gauss_shard.render_sweep_gauss_spmd,
+        "both": gauss_shard.render_sweep_2d_spmd}
+
+
+def sweep_rank(axis, split: str, cfg: TileConfig, root=None):
+    """A rank function (gs2pc_torch.parallel.launch.run): rank 0's ``root``
+    = (RenderArrays, CameraBatch, SH or None) broadcast, then the SPMD
+    sweep of ``split``.  Rank 0 returns (accumulators, wall seconds of the
+    sweep with the card synchronised, [K1, K2] launches of each rank)."""
+    with log.phase("scene_broadcast"):
+        scene, cams, sh = broadcast_sweep_inputs(axis, root)
+    before = _launches()
+    _sync(axis.device)
+    t0 = time.perf_counter()
+    acc = SPMD[split](scene, cams, cfg, axis, sh=sh)
+    _sync(axis.device)
+    wall = time.perf_counter() - t0
+    launches = axis.all_gather(torch.tensor(_launches()) - torch.tensor(before))
+    return acc, wall, launches.tolist()
+
+
+def _launches() -> list:
+    return list(launch.kernel_launches().values())
+
+
+class PlantedFailure(RuntimeError):
+    """The error fail_on_rank raises."""
+
+
+def fail_on_rank(axis, rank: int, root=None) -> None:
+    """A rank function that fails on purpose, to check the launcher's
+    failure path: every rank joins one all_gather, then rank ``rank``
+    raises PlantedFailure while the others wait on it in a second."""
+    axis.all_gather(torch.zeros(1, device=axis.device))
+    if axis.rank == rank:
+        raise PlantedFailure(f"planted on rank {rank} of {axis.size}")
+    axis.all_gather(torch.zeros(1, device=axis.device))
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def tiny_scene(n: int = N_GAUSSIANS, seed: int = 0, *, device) -> Gaussians:
@@ -118,19 +175,25 @@ def _slab_ok(d: dict, acc, ref) -> bool:
             and torch.equal(acc.n_dropped[1:], ref.n_dropped[1:]))
 
 
-def _verdict(n: int, axis: str, ok: bool, diffs: dict) -> str:
-    text = ", ".join(f"{k} {v}" if isinstance(v, int) else f"{k} {v:.3g}"
+def _diff_text(diffs: dict) -> str:
+    return ", ".join(f"{k} {v}" if isinstance(v, int) else f"{k} {v:.3g}"
                      for k, v in diffs.items())
+
+
+def _verdict(n: int, axis: str, ok: bool, diffs: dict, spmd: str = "") -> str:
     verdict = "OK" if ok else "DIFFERS"
     what = "sampled on devices[0]" if axis == "points" else "max |d| vs one device"
-    return f"dryrun_multichip({n}) {axis}: {verdict}; {what}: {text}"
+    return f"dryrun_multichip({n}) {axis}: {verdict}; {what}: {_diff_text(diffs)}{spmd}"
 
 
 def dryrun_multichip(n_devices: int, device="cuda:0") -> dict:
     """Run every sharded axis on ``[device] * n_devices`` (the first n cards
-    for a bare ``cuda``) against one device; print one verdict line per axis
-    and return {axis: max |d| by accumulator}.  Raises ValueError naming
-    every axis that differs."""
+    for a bare ``cuda``) against one device, as the one-thread walk and as
+    the SPMD program (one process per device, gs2pc_torch.parallel.launch);
+    print one verdict line per axis, the SPMD program's beside the walk's,
+    and return {axis: the walk's max |d| by accumulator}.  The SPMD sweep
+    must equal the walk bit for bit.  Raises ValueError naming every axis
+    that differs."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         devices = mesh.devices(n_devices)
@@ -142,33 +205,50 @@ def dryrun_multichip(n_devices: int, device="cuda:0") -> dict:
     cams = tiny_cameras(max(n_devices, 2), device=home)
     cfg = TileConfig(width_pad=cams.width_pad, height_pad=cams.height_pad)
     one = render_sweep(scene, cams, cfg)
+    splits = {"cams": "cams", "gauss": "gauss"}
+    if n_devices >= 4:
+        splits["2-D"] = "both"
+    walks = {axis: WALKS[split](scene, cams, cfg, devices) for axis, split in splits.items()}
+    spmd = launch.run(launch.in_turn, devices, [(sweep_rank, (s, cfg)) for s in splits.values()],
+                      root=[(scene, cams, None)] * len(splits))
+    spmd = {axis: acc for axis, (acc, _, _) in zip(splits, spmd)}
+    backend = backend_for(devices)
 
     verdicts, failed = {}, []
 
-    def report(axis, ok, diffs):
+    def report(axis, ok, diffs, spmd_note=""):
         verdicts[axis] = diffs
-        print(_verdict(n_devices, axis, ok, diffs), flush=True)
+        print(_verdict(n_devices, axis, ok, diffs, spmd_note), flush=True)
         if not ok:
             failed.append(axis)
 
-    acc = render_sweep_sharded(scene, cams, cfg, devices)
-    report("cams", _exact_ok(d := accumulator_diffs(acc, one)), d)
+    def held(axis, acc):
+        d = accumulator_diffs(acc, one)
+        return (_exact_ok(d) if axis == "cams" else _slab_ok(d, acc, one)), d
 
-    ppg = distribute_points(g.magnitudes(contributions=acc.total_contribution), N_POINTS)
-    gen = torch.Generator(device=home)
-    gen.manual_seed(0)
-    pts = sample_points(g, ppg, n_cap=N_CAP, generator=gen).points
-    n_valid, finite = pts.shape[0], int(torch.isfinite(pts).all())
-    report("points", n_valid > MIN_VALID and finite == 1, {"valid": n_valid, "finite": finite})
-
-    acc = render_sweep_gauss_sharded(scene, cams, cfg, devices)
-    report("gauss", _slab_ok(d := accumulator_diffs(acc, one), acc, one), d)
-    if n_devices >= 4:
-        acc = render_sweep_2d(scene, cams, cfg, devices)
-        report("2-D", _slab_ok(d := accumulator_diffs(acc, one), acc, one), d)
+    for axis in splits:
+        ok, d = held(axis, walks[axis])
+        s_ok, s_d = held(axis, spmd[axis])
+        same = all(torch.equal(getattr(spmd[axis], k), getattr(walks[axis], k))
+                   for k in ACCUMULATORS)
+        note = (f"; SPMD over {n_devices} processes ({backend}): "
+                f"{'OK' if s_ok else 'DIFFERS'}, "
+                f"{'bit-equal to' if same else 'DIFFERS from'} the walk")
+        if not same:
+            note += f"; SPMD max |d| vs one device: {_diff_text(s_d)}"
+        report(axis, ok and s_ok and same, d, note)
+        if axis == "cams":
+            ppg = distribute_points(g.magnitudes(contributions=walks[axis].total_contribution),
+                                    N_POINTS)
+            gen = torch.Generator(device=home)
+            gen.manual_seed(0)
+            pts = sample_points(g, ppg, n_cap=N_CAP, generator=gen).points
+            n_valid, finite = pts.shape[0], int(torch.isfinite(pts).all())
+            report("points", n_valid > MIN_VALID and finite == 1,
+                   {"valid": n_valid, "finite": finite})
     if failed:
         raise ValueError(f"dryrun_multichip({n_devices}): {', '.join(failed)} differ from "
-                         "one device")
+                         "one device or from the walk")
     return verdicts
 
 

@@ -16,8 +16,8 @@ slabs combine with a handful of reductions.  Per camera, on device d of D
     expansion and the sort scale ~1/D;
  2. pass 1: trigger-free alpha product over the slab (K1 with
     ``early_stop=False``) -> per-pixel slab transmittance T_d;
- 3. the T_d are gathered on ``devices[0]``; exclusive prefix
-    t0_d = prod_{d' < d} T_d' and the global product;
+ 3. the T_d are gathered; exclusive prefix t0_d = prod_{d' < d} T_d' and
+    the global product;
  4. pass 2: full blend with ``init_trans=t0_d`` -> absolute colour / depth
     contributions and per-Gaussian max contribution and best pixel (a pixel
     whose upstream product is already below 1e-4 stops at once, which
@@ -28,14 +28,20 @@ slabs combine with a handful of reductions.  Per camera, on device d of D
  6. pass 3 (surface pass on): the surface sweep against the combined
     expected-depth map (``surface_ed_override``), min over slabs.
 
-The JAX package's collectives become plain tensor code: ``all_gather`` is
-a ``torch.stack`` of copies to ``devices[0]``, ``psum`` / ``pmax`` / ``pmin``
-are ``sum`` / ``amax`` / ``amin`` over that stack, and each result is
-copied back to a device where its next pass needs it.  A device may
-repeat: on one card, ``[cuda:0] * 4`` keeps four slabs' buffers and one
-scene (``.to`` on the same device does not copy).  The devices are walked
-in turn from one thread; overlapping them (a thread, or a process over
-NCCL, per card) is later work for a machine with more than one card.
+The JAX package runs this as one SPMD program; so does the port.  In
+``render_sweep_gauss_spmd`` and ``render_sweep_2d_spmd`` each device is one
+process (gs2pc_torch.parallel.launch) that renders its own slab, and each
+of the JAX package's collectives is one of its gs2pc_torch.parallel.group.
+Axis: ``all_gather`` of the T_d, ``psum`` of the image, depths, best colour
+and counters, ``pmax`` of the contribution, ``pmin`` of the surface
+distance.  The one-thread walks ``render_sweep_gauss_sharded`` and
+``render_sweep_2d`` are their twins: ``all_gather`` is a ``torch.stack`` of
+copies to ``devices[0]``, ``psum`` / ``pmax`` / ``pmin`` are ``sum`` /
+``amax`` / ``amin`` over that stack, and each result is copied back to a
+device where its next pass needs it.  The SPMD sweeps reduce with the
+walks' expressions, so the two agree bit for bit.  A device may repeat: on
+one card, ``[cuda:0] * 4`` runs four slabs (one scene in the walk, one a
+process in SPMD).
 
 Known divergences from the single-device renderer, as in the JAX package:
 (a) the background on early-stopped pixels uses the trigger-free product,
@@ -64,10 +70,12 @@ from gs2pc_torch.sweep import (
     SH,
     RenderArrays,
     SweepAccumulators,
+    gather_merge,
     init_accumulators,
     merge_accumulators,
     update_accumulators,
 )
+from gs2pc_torch.utils import log
 
 _SLAB_SAMPLE = 4096  # strided depth sample for quantile boundaries
 
@@ -128,85 +136,144 @@ def _to_full(v: torch.Tensor, idx: torch.Tensor, p_full: int, fill: float) -> to
     return full
 
 
-def _render_one_gauss_sharded(
+class _Walked:
+    """The slab axis walked from one thread: every slab is rendered here,
+    slab d on ``devices[d]``; a collective stacks the slabs' parts on
+    ``devices[0]`` and reduces them there."""
+
+    def __init__(self, devices: Sequence[torch.device]):
+        self.devices = list(devices)
+        self.size = len(self.devices)
+        self.home = self.devices[0]
+        self.slabs = range(self.size)  # the slabs rendered here
+
+    def device(self, d: int) -> torch.device:
+        return self.devices[d]
+
+    def all_gather(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        return torch.stack([p.to(self.home) for p in parts])
+
+    def psum(self, parts):
+        return self.all_gather(parts).sum(dim=0)
+
+    def pmax(self, parts):
+        return self.all_gather(parts).amax(dim=0)
+
+    def pmin(self, parts):
+        return self.all_gather(parts).amin(dim=0)
+
+
+class _OnAxis:
+    """Slab ``axis.rank`` of an SPMD program: this rank renders its own
+    slab, and a collective is the axis's (gs2pc_torch.parallel.group.Axis,
+    whose reductions are _Walked's expressions over the gathered parts)."""
+
+    def __init__(self, axis):
+        self.axis = axis
+        self.size = axis.size
+        self.home = axis.device
+        self.slabs = [axis.rank]
+
+    def device(self, d: int) -> torch.device:
+        return self.axis.device
+
+    def all_gather(self, parts):
+        return self.axis.all_gather(*parts)
+
+    def psum(self, parts):
+        return self.axis.psum(*parts)
+
+    def pmax(self, parts):
+        return self.axis.pmax(*parts)
+
+    def pmin(self, parts):
+        return self.axis.pmin(*parts)
+
+
+def _render_one_slabs(
     scenes: Sequence[RenderArrays],
     camera,
-    devices: Sequence[torch.device],
+    on,
     cfg: TileConfig,
     calc_surface_distance: bool,
     shs: Sequence[Optional[SH]],
 ) -> RenderOutput:
-    n_dev = len(devices)
-    home = devices[0]
+    """One camera's slab passes (the module docstring's steps 1-6) for the
+    slabs ``on.slabs`` (every slab in a walk, one in an SPMD rank), combined
+    through ``on``'s collectives; ``scenes[i]`` and ``shs[i]`` are the copies
+    on slab ``on.slabs[i]``'s device.  Every value a later pass reads (t0_d,
+    the combined image and expected depth) comes out the same on every
+    rank, since each gathers the same parts and reduces them alike."""
+    mine = list(on.slabs)
     p_full = scenes[0].means.shape[0]
-    cams = [camera.to(dev) for dev in devices]
-    slabs = [_compact(scenes[d], cams[d], d, n_dev, shs[d]) for d in range(n_dev)]
+    cams = [camera.to(on.device(d)) for d in mine]
+    slabs = [_compact(scenes[i], cams[i], d, on.size, shs[i]) for i, d in enumerate(mine)]
 
-    def render(d, **kw):
-        return render_tile_camera(*slabs[d].scene, cams[d], cfg, white_bkgd=False, **kw)
+    def render(i, **kw):
+        return render_tile_camera(*slabs[i].scene, cams[i], cfg, white_bkgd=False, **kw)
 
     # Pass 1: trigger-free slab transmittance.
-    all_t = torch.stack([
-        render(d, calc_surface_distance=False, early_stop=False, want_trans=True)
-        .trans.reshape(-1).to(home)
-        for d in range(n_dev)
+    all_t = on.all_gather([
+        render(i, calc_surface_distance=False, early_stop=False, want_trans=True)
+        .trans.reshape(-1)
+        for i in range(len(mine))
     ])  # (D, Hp * Wp)
-    ids = torch.arange(n_dev, device=home)
-    t0 = [torch.prod(torch.where((ids < d)[:, None], all_t, 1.0), dim=0) for d in range(n_dev)]
+    ids = torch.arange(on.size, device=all_t.device)
+    t0 = [torch.prod(torch.where((ids < d)[:, None], all_t, 1.0), dim=0).to(on.device(d))
+          for d in mine]
     t_global = torch.prod(all_t, dim=0)
 
     # Pass 2: absolute contributions with the upstream prefix.
-    p2 = [
-        render(d, calc_surface_distance=False, init_trans=t0[d].to(devices[d]),
-               want_best_pix=True)
-        for d in range(n_dev)
-    ]
-    image = torch.stack([o.image.to(home) for o in p2]).sum(dim=0)
+    p2 = [render(i, calc_surface_distance=False, init_trans=t0[i], want_best_pix=True)
+          for i in range(len(mine))]
+    image = on.psum([o.image for o in p2])
     image = image + t_global.reshape(image.shape[:2])[..., None]  # white background
-    ed = torch.stack([o.depth.to(home) for o in p2]).sum(dim=0)
-    einv = torch.stack([o.invdepth.to(home) for o in p2]).sum(dim=0)
-    contrib = torch.stack([
-        _to_full(o.contrib, s.idx, p_full, 0.0).to(home) for o, s in zip(p2, slabs)
-    ]).amax(dim=0)
+    ed = on.psum([o.depth for o in p2])
+    einv = on.psum([o.invdepth for o in p2])
+    contrib = on.pmax([_to_full(o.contrib, s.idx, p_full, 0.0) for o, s in zip(p2, slabs)])
 
     # Colour at the best pixel comes from the COMBINED image; each Gaussian
     # lies in one slab, so one row per Gaussian is non-zero in the sum.
     best = []
-    for d, (o, s) in enumerate(zip(p2, slabs)):
-        flat = image.reshape(-1, 3).to(devices[d])
+    for d, o, s in zip(mine, p2, slabs):
+        flat = image.reshape(-1, 3).to(on.device(d))
         rows = torch.where((o.contrib > 0.0)[:, None], flat[o.best_pix], 0.0)
-        best.append(_to_full(rows, s.idx, p_full, 0.0).to(home))
-    best_colour = torch.stack(best).sum(dim=0)
+        best.append(_to_full(rows, s.idx, p_full, 0.0))
+    best_colour = on.psum(best)
 
     if calc_surface_distance:
         # Pass 3: the surface sweep against the combined expected depth.
         ed_flat = ed.reshape(-1)
-        surf = torch.stack([
+        surf = on.pmin([
             _to_full(
-                render(d, calc_surface_distance=True, init_trans=t0[d].to(devices[d]),
-                       surface_ed_override=ed_flat.to(devices[d])).surf_dist,
-                slabs[d].idx, p_full, FLOAT_MAX,
-            ).to(home)
-            for d in range(n_dev)
-        ]).amin(dim=0)
+                render(i, calc_surface_distance=True, init_trans=t0[i],
+                       surface_ed_override=ed_flat.to(on.device(d))).surf_dist,
+                slabs[i].idx, p_full, FLOAT_MAX,
+            )
+            for i, d in enumerate(mine)
+        ])
     else:
-        surf = torch.full((p_full,), FLOAT_MAX, device=home)
+        surf = torch.full((p_full,), FLOAT_MAX, device=on.home)
 
     # Each slab counted its own pairs (the run cap applies per slab, the
-    # module docstring's divergence (b)); slab overflow goes into the
-    # window-truncation counter.
-    n_dropped = torch.stack([o.n_dropped.to(home) for o in p2]).sum(dim=0)
-    n_dropped[1] += sum(s.overflow for s in slabs)
+    # module docstring's divergence (b)); slab overflow joins the slab's
+    # window-truncation counter before the sum: whole numbers in float64,
+    # so the sum is exact in any grouping.
+    counters = []
+    for o, s in zip(p2, slabs):
+        c = o.n_dropped.clone()
+        c[1] += s.overflow
+        counters.append(c)
 
     return RenderOutput(
         image=image,
         depth=ed,
         invdepth=einv,
-        radii=torch.zeros(p_full, device=home),  # unused by the accumulators
+        radii=torch.zeros(p_full, device=on.home),  # unused by the accumulators
         contrib=contrib,
         best_colour=best_colour,
         surf_dist=surf,
-        n_dropped=n_dropped,
+        n_dropped=on.psum(counters),
     )
 
 
@@ -226,9 +293,30 @@ def render_sweep_gauss_sharded(
     shs = [None if sh is None else sh.to(dev) for dev in devices]
     acc = init_accumulators(scene.means.shape[0], device=devices[0])
     for i in range(cameras.num_cameras):
-        out = _render_one_gauss_sharded(
-            scenes, cameras.at(i), devices, cfg, calc_surface_distance, shs,
+        out = _render_one_slabs(
+            scenes, cameras.at(i), _Walked(devices), cfg, calc_surface_distance, shs,
         )
+        acc = update_accumulators(acc, out)
+    return acc
+
+
+def render_sweep_gauss_spmd(
+    scene: RenderArrays,
+    cameras,
+    cfg: TileConfig,
+    axis,
+    calc_surface_distance: bool = True,
+    sh: Optional[SH] = None,
+) -> SweepAccumulators:
+    """render_sweep_gauss_sharded as one rank of an SPMD program (the JAX
+    package's shard_map over the gauss axis): rank d of ``axis``
+    (gs2pc_torch.parallel.group.Axis) renders depth slab d of every camera,
+    with the scene, cameras and SH on its own device.  Every rank returns
+    the walk's accumulators bit for bit."""
+    acc = init_accumulators(scene.means.shape[0], device=axis.device)
+    for i in range(cameras.num_cameras):
+        out = _render_one_slabs([scene], cameras.at(i), _OnAxis(axis), cfg,
+                                calc_surface_distance, [sh])
         acc = update_accumulators(acc, out)
     return acc
 
@@ -266,3 +354,31 @@ def render_sweep_2d(
             )
             acc = merge_accumulators(acc, part.to(devices[0]))
     return acc
+
+
+def render_sweep_2d_spmd(
+    scene: RenderArrays,
+    cameras,
+    cfg: TileConfig,
+    axis,
+    calc_surface_distance: bool = True,
+    sh: Optional[SH] = None,
+) -> Optional[SweepAccumulators]:
+    """render_sweep_2d as one rank of an SPMD program: ``axis.grid_2d()``
+    gives this rank's slab axis (its row of grid_2d) and, on the row
+    leaders, the camera axis.  Row r sweeps camera block r of
+    ``split_evenly(N, rows)`` with render_sweep_gauss_spmd over its slab
+    axis; the leaders then gather the rows' accumulators and merge them in
+    row order (sweep.gather_merge).  Returns the walk's accumulators, bit
+    for bit, on the leaders (rank 0 among them), and None on the other
+    ranks."""
+    slab_axis, cam_axis = axis.grid_2d()
+    n_rows = axis.size // slab_axis.size
+    blocks = split_evenly(cameras.num_cameras, n_rows)
+    lo, hi = blocks[axis.rank // slab_axis.size]
+    acc = render_sweep_gauss_spmd(scene, cameras.sub(lo, hi, axis.device), cfg, slab_axis,
+                                  calc_surface_distance, sh)
+    if cam_axis is None:
+        return None
+    with log.phase("gather"):
+        return gather_merge(acc, cam_axis, blocks)

@@ -2,12 +2,14 @@
 gs2pc.parallel.mesh).
 
 The JAX package shards over a ``jax.sharding.Mesh``; here a sharded sweep
-takes an explicit list of ``torch.device`` and walks it.  A device may
-repeat: the list ``[cuda:0] * 4`` runs a four-way split on one card, the
-way the JAX tests run on virtual CPU devices.
+takes an explicit list of ``torch.device``: one process per device in the
+SPMD sweeps (gs2pc_torch.parallel.launch, with parallel/group.py's Axis in
+place of a mesh axis), or the list walked from one thread in their twins.
+A device may repeat: the list ``[cuda:0] * 4`` runs a four-way split on
+one card, the way the JAX tests run on virtual CPU devices.
 
   * axis "cams":  the camera sweep is data-parallel over cameras
-    (gs2pc_torch.sweep.render_sweep_sharded);
+    (gs2pc_torch.sweep.render_sweep_spmd / render_sweep_sharded);
   * axis "gauss": each camera's Gaussians are split into depth slabs
     (gs2pc_torch.parallel.gauss_shard).
 """

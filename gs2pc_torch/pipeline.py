@@ -1,14 +1,17 @@
 """End-to-end conversion: load -> camera sweep (on one device, or sharded
-over several; or a saved sweep) -> cull chain -> PSD clamp -> sample ->
-host point cloud, and with --generate_mesh a second, surface point cloud
-(counterpart of gs2pc.pipeline.convert_3dgs_to_pc).
+over several, one process each; or a saved sweep) -> cull chain -> PSD
+clamp -> sample -> host point cloud, and with --generate_mesh a second,
+surface point cloud (counterpart of gs2pc.pipeline.convert_3dgs_to_pc).
 
 Culled Gaussians stay in place with keep_mask False and get a zero point
 quota, as in the JAX package, so every cull predicate sees the initial set.
-The sampler runs on the first device whatever the number of devices: the
-JAX package's split of its point axis changes no value, and placing the
-slots in blocks over the devices was slower than one device on an H100
-(PERF.md, Findings), so it is not ported.
+A sweep over several devices is an SPMD program (gs2pc_torch.parallel.
+launch): this process is rank 0, parses the scene once and broadcasts it,
+and alone runs everything after the sweep.  The sampler runs on the first
+device whatever the number of devices: the JAX package's split of its
+point axis changes no value, and placing the slots in blocks over the
+devices was slower than one device on an H100 (PERF.md, Findings), so it
+is not ported.
 """
 
 from __future__ import annotations
@@ -30,14 +33,21 @@ from gs2pc_torch.models.gaussians import Gaussians
 from gs2pc_torch.ops.blend import FLOAT_MAX
 from gs2pc_torch.ops.rasterize import TileConfig
 from gs2pc_torch.ops.sampler import distribute_points, sample_points
-from gs2pc_torch.parallel import mesh
-from gs2pc_torch.parallel.gauss_shard import render_sweep_2d, render_sweep_gauss_sharded
+from gs2pc_torch.parallel import launch, mesh
+from gs2pc_torch.parallel.gauss_shard import (
+    render_sweep_2d,
+    render_sweep_2d_spmd,
+    render_sweep_gauss_sharded,
+    render_sweep_gauss_spmd,
+)
 from gs2pc_torch.sweep import (
     SH,
     SweepAccumulators,
+    broadcast_sweep_inputs,
     render_arrays,
     render_sweep,
     render_sweep_sharded,
+    render_sweep_spmd,
 )
 from gs2pc_torch.utils import log
 from gs2pc_torch.utils.checkpoint import load_accumulators, save_accumulators
@@ -210,36 +220,58 @@ def resolve_num_devices(num_devices: int, settings: GaussPointCloudSettings, dev
 
 
 def sweep_devices(device: torch.device, num_devices: int) -> list:
-    """The sweep's devices: ``device`` alone, the first N cards for a CUDA
-    ``device`` (raising if the machine has fewer), or N times the CPU."""
+    """The sweep's devices: ``device`` alone; for a CUDA ``device``, N cards
+    with ``device`` first, then the lowest-numbered others (raising if the
+    machine has fewer), since the first is rank 0 of an SPMD sweep, which
+    runs the rest of the conversion; or N times the CPU."""
     if num_devices == 1:
         return [device]
     if device.type == "cuda":
-        return mesh.devices(num_devices)
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        mesh.devices(num_devices)  # raises when the machine has fewer
+        others = [c for c in mesh.devices(torch.cuda.device_count()) if c != device]
+        return [device] + others[:num_devices - 1]
     return [device] * num_devices
 
 
-def run_render_sweep(
-    gaussians, cameras, settings, devices: Optional[Sequence[torch.device]] = None
-) -> SweepAccumulators:
-    """The camera sweep over ``devices`` (default: the scene's device) on the
-    axis ``settings.shard_axis`` names; accumulators on ``devices[0]``."""
-    devices = list(devices) if devices is not None else [gaussians.device]
-    if settings.shard_axis != "cams" and len(devices) <= 1:
+def _check_split(settings, n_devices: int) -> None:
+    """Raise on a --shard_axis the devices or the renderer cannot take."""
+    if settings.shard_axis != "cams" and n_devices <= 1:
         raise ValueError(
             f"--shard_axis {settings.shard_axis} needs --num_devices > 1 "
             "(it would otherwise be silently ignored)"
         )
     if settings.shard_axis != "cams" and settings.renderer_type != "tile":
         raise ValueError(f"--shard_axis {settings.shard_axis} requires the tile renderer")
+
+
+def _sweep_plan(cameras, settings) -> tuple:
+    """(TileConfig, surface pass on) of a sweep.  The mesh cloud samples the
+    surface Gaussians, so meshing needs the surface distances too."""
     cfg = tile_config(settings, cameras.width_pad, cameras.height_pad)
-    scene = render_arrays(gaussians)
-    # The mesh cloud samples the surface Gaussians, so meshing needs the
-    # surface distances too.
-    csd = settings.surface_distance_std is not None or settings.generate_mesh
-    sh = None
+    return cfg, settings.surface_distance_std is not None or settings.generate_mesh
+
+
+def _sweep_sh(gaussians, settings) -> Optional[SH]:
+    """The SH the sweep evaluates per camera (--sh_colour_eval), or None."""
     if settings.sh_colour_eval and gaussians.shs is not None:
-        sh = SH(gaussians.shs, settings.max_sh_degree)
+        return SH(gaussians.shs, settings.max_sh_degree)
+    return None
+
+
+def run_render_sweep(
+    gaussians, cameras, settings, devices: Optional[Sequence[torch.device]] = None
+) -> SweepAccumulators:
+    """The camera sweep over ``devices`` (default: the scene's device) on the
+    axis ``settings.shard_axis`` names, several devices walked in turn from
+    this thread (the SPMD sweeps' twins, run_render_sweep_spmd);
+    accumulators on ``devices[0]``."""
+    devices = list(devices) if devices is not None else [gaussians.device]
+    _check_split(settings, len(devices))
+    cfg, csd = _sweep_plan(cameras, settings)
+    scene = render_arrays(gaussians)
+    sh = _sweep_sh(gaussians, settings)
     if settings.shard_axis == "gauss":
         return render_sweep_gauss_sharded(scene, cameras, cfg, devices, calc_surface_distance=csd,
                                           sh=sh)
@@ -252,22 +284,67 @@ def run_render_sweep(
                         renderer=settings.renderer_type, sh=sh)
 
 
-def sweep_with_capacity(gaussians, cameras, settings, devices):
-    """The sweep, and with --auto_capacity up to two re-renders, each with
-    the run cap doubled, while the live run-cap drops are material
-    (gs2pc/pipeline.py's escalation; the port expands pairs exactly and has
-    no pair budget, so the run cap is the one capacity to grow).  Returns
-    the last sweep's accumulators on ``devices[0]`` and its counters."""
+def run_render_sweep_spmd(axis, scene, cameras, settings, sh=None) -> Optional[SweepAccumulators]:
+    """run_render_sweep as one rank of an SPMD program over ``axis``
+    (gs2pc_torch.parallel.group.Axis), with the scene, cameras and SH on
+    this rank's device; the accumulators on rank 0 (None on the 2-D
+    split's ranks that hold no merged result)."""
+    _check_split(settings, axis.size)
+    cfg, csd = _sweep_plan(cameras, settings)
+    if settings.shard_axis == "gauss":
+        return render_sweep_gauss_spmd(scene, cameras, cfg, axis, calc_surface_distance=csd,
+                                       sh=sh)
+    if settings.shard_axis == "both":
+        return render_sweep_2d_spmd(scene, cameras, cfg, axis, calc_surface_distance=csd, sh=sh)
+    return render_sweep_spmd(scene, cameras, cfg, axis, calc_surface_distance=csd,
+                             renderer=settings.renderer_type, sh=sh)
+
+
+def _with_capacity(settings, sweep, axis=None):
+    """``sweep(settings)``, and with --auto_capacity up to two re-renders,
+    each with the run cap doubled, while the live run-cap drops are
+    material (gs2pc/pipeline.py's escalation; the port expands pairs
+    exactly and has no pair budget, so the run cap is the one capacity to
+    grow).  Over an SPMD ``axis`` rank 0 reads the counters and broadcasts
+    whether to sweep again, so every rank sweeps as often; only rank 0
+    logs.  Returns the last sweep's accumulators and rank 0's counters."""
+    lead = axis is None or axis.rank == 0
     attempts = AUTO_CAPACITY_ATTEMPTS if settings.auto_capacity else 1
     for attempt in range(attempts):
-        acc = run_render_sweep(gaussians, cameras, settings, devices)
-        diag = report_truncation(acc)
-        if not truncation_material(diag)[1] or attempt == attempts - 1:
+        acc = sweep(settings)
+        diag = report_truncation(acc) if lead else None
+        again = attempt < attempts - 1 and truncation_material(diag)[1]
+        if axis is not None and attempts > 1:
+            again = axis.broadcast_object(again)
+        if not again:
             return acc, diag
         run_cap = settings.render.max_pairs_per_tile * 2
         settings = settings._replace(
             render=settings.render._replace(max_pairs_per_tile=run_cap))
-        log.warn(f"auto_capacity: re-rendering with run_cap={run_cap}")
+        if lead:
+            log.warn(f"auto_capacity: re-rendering with run_cap={run_cap}")
+
+
+def sweep_with_capacity(gaussians, cameras, settings, devices):
+    """run_render_sweep over ``devices`` with --auto_capacity's re-renders
+    (_with_capacity); accumulators on ``devices[0]``, and their counters."""
+    return _with_capacity(settings, lambda s: run_render_sweep(gaussians, cameras, s, devices))
+
+
+def sweep_with_capacity_spmd(axis, gaussians, cameras, settings):
+    """sweep_with_capacity as one rank of an SPMD program: rank 0's scene,
+    cameras and SH broadcast to every rank (the other ranks pass None for
+    ``gaussians`` and ``cameras``), then run_render_sweep_spmd with
+    --auto_capacity's re-renders.  Rank 0 gets the accumulators and their
+    counters."""
+    root = None
+    if axis.rank == 0:
+        root = (render_arrays(gaussians), cameras, _sweep_sh(gaussians, settings))
+    with log.phase("scene_broadcast"):
+        scene, cams, sh = broadcast_sweep_inputs(axis, root)
+    with log.phase("sweep"):
+        return _with_capacity(
+            settings, lambda s: run_render_sweep_spmd(axis, scene, cams, s, sh), axis)
 
 
 def convert_3dgs_to_pc(
@@ -277,19 +354,65 @@ def convert_3dgs_to_pc(
     settings: GaussPointCloudSettings,
     *,
     device,
-    num_devices: int = 0,
+    num_devices: int = 1,
 ) -> Conversion:
     """The full conversion on ``device``, with the camera sweep over
     ``num_devices`` devices (0: every local card; see resolve_num_devices
-    and sweep_devices), or the sweep loaded from ``settings.load_sweep``
-    (then no transforms are needed); returns the host point cloud, and the
-    surface point cloud with --generate_mesh."""
+    and sweep_devices; 1 by default, as in the JAX package's library, while
+    the CLI's --num_devices defaults to 0), or the sweep loaded from
+    ``settings.load_sweep`` (then no transforms are needed); returns the
+    host point cloud, and the surface point cloud with --generate_mesh.
+
+    A sweep over several devices runs as an SPMD program, one process per
+    device (gs2pc_torch.parallel.launch; this process is rank 0 on
+    ``device`` and runs everything but the sweep alone, convert_rank); a
+    failed rank fails the conversion.  Each such conversion starts its
+    ranks anew (PERF.md gives what that costs)."""
+    device, settings, devices = _conversion_devices(settings, device, num_devices)
+    sweeps = settings.render_colours and settings.load_sweep is None
+    if len(devices) > 1 and sweeps:
+        _check_split(settings, len(devices))
+        return launch.run(convert_rank, devices, input_path, transform_path, mask_path,
+                          settings)
+    return _convert(input_path, transform_path, mask_path, settings, device,
+                    lambda g, cams, s: sweep_with_capacity(g, cams, s, devices))
+
+
+def _convert_walked(input_path, transform_path, mask_path, settings, *, device,
+                    num_devices: int = 1) -> Conversion:
+    """convert_3dgs_to_pc with its sweep over several devices walked in turn
+    from this thread: the SPMD conversion's twin, which the checks hold it
+    to."""
+    device, settings, devices = _conversion_devices(settings, device, num_devices)
+    return _convert(input_path, transform_path, mask_path, settings, device,
+                    lambda g, cams, s: sweep_with_capacity(g, cams, s, devices))
+
+
+def _conversion_devices(settings, device, num_devices: int) -> tuple:
+    """(device, settings, sweep devices) of a conversion, with its
+    precision and logging set."""
     set_precision()
     device = torch.device(device)
     log.set_quiet(settings.quiet)
     num_devices, settings = resolve_num_devices(num_devices, settings, device)
-    devices = sweep_devices(device, num_devices)
+    return device, settings, sweep_devices(device, num_devices)
 
+
+def convert_rank(axis, input_path, transform_path, mask_path, settings, root=None):
+    """The SPMD conversion's rank function (gs2pc_torch.parallel.launch.run):
+    rank 0 runs the whole conversion on its device with the sweep shared
+    over ``axis``; the other ranks take part in the sweep only."""
+    set_precision()
+    if axis.rank > 0:
+        sweep_with_capacity_spmd(axis, None, None, settings)
+        return None
+    return _convert(input_path, transform_path, mask_path, settings, axis.device,
+                    lambda g, cams, s: sweep_with_capacity_spmd(axis, g, cams, s))
+
+
+def _convert(input_path, transform_path, mask_path, settings, device, sweep) -> Conversion:
+    """convert_3dgs_to_pc on ``device`` with ``sweep(gaussians, cameras,
+    settings) -> (accumulators, counters)``."""
     transforms = intrinsics = None
     if transform_path is not None:
         with log.phase("camera_poses"):
@@ -337,7 +460,7 @@ def convert_3dgs_to_pc(
                     transforms, intrinsics, colour_resolution=settings.colour_resolution,
                     masks=mask_images, device=device,
                 )
-                acc, diag = sweep_with_capacity(gaussians, cameras, settings, devices)
+                acc, diag = sweep(gaussians, cameras, settings)
                 acc = acc.to(device)
             if settings.save_sweep is not None:
                 with log.phase("save_sweep"):

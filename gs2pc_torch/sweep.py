@@ -1,7 +1,9 @@
 """Camera sweeps + per-Gaussian accumulators (counterpart of
 gs2pc.parallel.sweep): the single-device sweep and the camera
-data-parallel sweep over a list of devices, with the tile renderer or the
-dense oracle.
+data-parallel sweep, with the tile renderer or the dense oracle.  The
+camera split runs as an SPMD program, one process per device combined by
+collectives (render_sweep_spmd, the JAX package's shard_map), or from one
+thread over a list of devices (render_sweep_sharded, its twin).
 
   max_contribution      running max of the per-image max alpha*T
   colours               rendered colour at the winning pixel, [0, 1]
@@ -16,11 +18,13 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from gs2pc_torch.camera import CAMERA_TENSORS, CameraBatch
 from gs2pc_torch.ops.blend import FLOAT_MAX, RenderOutput
 from gs2pc_torch.ops.dense_render import render_dense
 from gs2pc_torch.ops.rasterize import TileConfig, render_tile_camera
 from gs2pc_torch.ops.sh import view_colours
 from gs2pc_torch.parallel.mesh import split_evenly
+from gs2pc_torch.utils import log
 
 
 class RenderArrays(NamedTuple):
@@ -42,6 +46,27 @@ def render_arrays(gaussians) -> RenderArrays:
         gaussians.xyz, gaussians.covariance_factors(), gaussians.opacities,
         gaussians.colours, gaussians.keep_mask,
     )
+
+
+def broadcast_sweep_inputs(axis, root=None) -> tuple:
+    """Rank 0's ``root`` = (RenderArrays, CameraBatch, SH or None) on every
+    rank of ``axis``, each on its rank's device: the scene is parsed once,
+    on rank 0, and replicated, as the JAX package parses once and
+    replicates.  The other ranks pass nothing."""
+    meta = tensors = None
+    if axis.rank == 0:
+        scene, cams, sh = root
+        meta = (cams.widths, cams.heights, cams.width_pad, cams.height_pad,
+                None if sh is None else sh.degree)
+        tensors = [*scene, *(getattr(cams, f) for f in CAMERA_TENSORS),
+                   None if sh is None else sh.coeffs]
+    widths, heights, width_pad, height_pad, degree = axis.broadcast_object(meta)
+    tensors = axis.broadcast_tensors(tensors)
+    n = len(RenderArrays._fields)
+    cams = CameraBatch(**dict(zip(CAMERA_TENSORS, tensors[n:-1])), widths=widths,
+                       heights=heights, width_pad=width_pad, height_pad=height_pad)
+    sh = None if degree is None else SH(tensors[-1], degree)
+    return RenderArrays(*tensors[:n]), cams, sh
 
 
 class SweepAccumulators(NamedTuple):
@@ -170,3 +195,40 @@ def render_sweep_sharded(
                                 None if sh is None else sh.to(dev))
             acc = merge_accumulators(acc, part.to(devices[0]))
     return acc
+
+
+def gather_merge(acc: SweepAccumulators, axis, blocks) -> SweepAccumulators:
+    """Every rank's accumulators gathered over ``axis`` and merged in rank
+    order from init_accumulators, skipping the ranks whose camera block
+    ``blocks[r]`` is empty: render_sweep_sharded's fold, on every rank."""
+    parts = [axis.all_gather(t) for t in acc]
+    out = init_accumulators(acc.max_contribution.shape[0], device=axis.device)
+    for r, (lo, hi) in enumerate(blocks):
+        if hi > lo:
+            out = merge_accumulators(out, SweepAccumulators(*(p[r] for p in parts)))
+    return out
+
+
+def render_sweep_spmd(
+    scene: RenderArrays,
+    cameras,
+    cfg: TileConfig,
+    axis,
+    calc_surface_distance: bool = True,
+    renderer: str = "tile",
+    sh: Optional[SH] = None,
+) -> SweepAccumulators:
+    """render_sweep_sharded as one rank of an SPMD program (the JAX
+    package's shard_map over the camera axis): rank r of ``axis``
+    (gs2pc_torch.parallel.group.Axis) sweeps block r of
+    ``split_evenly(N, D)`` with the scene, cameras and SH on its own
+    device, then the accumulators are gathered and merged as the walk
+    merges them (gather_merge), so every rank returns the walk's
+    accumulators bit for bit.  A rank with an empty block takes part in
+    every collective."""
+    blocks = split_evenly(cameras.num_cameras, axis.size)
+    lo, hi = blocks[axis.rank]
+    acc = render_sweep(scene, cameras.sub(lo, hi, axis.device), cfg, calc_surface_distance,
+                       renderer, sh)
+    with log.phase("gather"):
+        return gather_merge(acc, axis, blocks)

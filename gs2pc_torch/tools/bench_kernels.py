@@ -17,16 +17,18 @@ and the PyTorch calls that compute K3's roll and scan (torch.roll,
 torch.cumprod), which the port never calls.  ``--gaussians 0`` times the
 probes alone.
 
-    python gs2pc_torch/tools/bench_kernels.py [--root DIR] [--e2e N [--profile]]
-        [--gaussians 3000000] [--reps 20] [--out FILE]
+    python gs2pc_torch/tools/bench_kernels.py [--root DIR] [--e2e N [--profile]
+        [--num_devices N] [--e2e_only]] [--gaussians 3000000] [--reps 20] [--out FILE]
 
 ``--root`` imports ``gs2pc_torch`` from another checkout (the tool runs as
 a file, so the same script times an older tree beside this one: run them
 in turns, A B B A, in one call on one card).  ``--e2e N`` also runs the
 production conversion of that scene (16 cameras, 10M points) N times
 through ``cli.main`` and records each wall and its phases; ``--profile``
-adds one run under torch.profiler (the card's busy time, its top kernels).
-A card is required.  Prints one JSON
+adds one run under torch.profiler (the card's busy time, its top kernels);
+``--num_devices`` passes the CLI's own flag (on a machine with several
+cards, 1 runs one card and 0, the CLI's default, every card, one process
+each); ``--e2e_only`` skips the kernels.  A card is required.  Prints one JSON
 object as its last line.
 """
 
@@ -287,12 +289,15 @@ def device_profile(fn) -> dict:
             "top_ms": {e.key[:60]: _device_us(e) / 1e3 for e in events[:10]}}
 
 
-def time_e2e(root: str, n_gaussians: int, n_runs: int, profile: bool) -> dict:
+def time_e2e(root: str, n_gaussians: int, n_runs: int, profile: bool,
+             extra: Sequence[str] = ()) -> dict:
     """The production conversion on the capture scene (16 cameras at
     1280x720 with masks, 10M points, surface distances on) through
-    ``cli.main``, ``n_runs`` times: per run the wall, disk to disk, and the
-    phases of ``utils.log.PHASE_SECONDS``; with ``profile``, one more run
-    under ``device_profile``."""
+    ``cli.main`` with the arguments ``extra`` added, ``n_runs`` times: per
+    run the wall, disk to disk, and the phases of
+    ``utils.log.PHASE_SECONDS`` (with a sweep over several cards, the
+    spawned ranks' too, as ``rank<r>/<phase>``); with ``profile``, one more
+    run under ``device_profile``."""
     import shutil
 
     from gs2pc_torch import cli
@@ -307,7 +312,7 @@ def time_e2e(root: str, n_gaussians: int, n_runs: int, profile: bool) -> dict:
         ply, tj, mask_dir = capture.write_capture(work, a, transforms, intr, with_masks=True)
         argv = ["--input_path", ply, "--transform_path", tj, "--mask_path", mask_dir,
                 "--output_path", os.path.join(work, "cloud.ply"), "--num_points", "10000000",
-                "--surface_distance_std", "1e6", "--seed", "0", "--quiet"]
+                "--surface_distance_std", "1e6", "--seed", "0", "--quiet", *extra]
         runs = []
         for _ in range(n_runs):
             log.reset_phases()
@@ -334,6 +339,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     help="also run the 16-camera conversion this many times")
     ap.add_argument("--profile", action="store_true",
                     help="with --e2e, profile one more conversion (card busy time)")
+    ap.add_argument("--num_devices", type=int, default=None,
+                    help="with --e2e, the CLI's --num_devices (default: the CLI's own)")
+    ap.add_argument("--e2e_only", action="store_true",
+                    help="with --e2e, skip the kernel and probe timings")
     ap.add_argument("--out", default=None, help="also write the JSON record here")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root or os.path.join(os.path.dirname(__file__), "..", ".."))
@@ -354,8 +363,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
            **{f"{k}_ptxas": kernel_ptxas(log, name) for k, name in (
                ("k1", "blend_tiles_kernel"), ("k3", "probe_op_kernel"),
                ("k4", "probe_blend_kernel"))}}
-    rec["probes"] = time_probes(device, 10 * args.reps)
-    if args.gaussians:
+    if not args.e2e_only:
+        rec["probes"] = time_probes(device, 10 * args.reps)
+    if args.gaussians and not args.e2e_only:
         prep, cfg, modes = camera_inputs(args.gaussians, device)
         from gs2pc_torch.ops import blend_kernel as B
 
@@ -366,7 +376,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         rec["k1"] = time_k1(modes, args.reps)
         rec["k2"] = time_k2(prep, cfg, args.reps)
     if args.e2e and args.gaussians:
-        rec["e2e"] = time_e2e(root, args.gaussians, args.e2e, args.profile)
+        extra = [] if args.num_devices is None else ["--num_devices", str(args.num_devices)]
+        rec["cards"] = torch.cuda.device_count()
+        rec["e2e"] = time_e2e(root, args.gaussians, args.e2e, args.profile, extra)
     line = json.dumps(rec)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -153,13 +153,16 @@ def test_ply_matches_jax_writer_layout(conversions, tmp_path):
 
 
 def test_port_never_imports_jax(capture, tmp_path):
-    """CPU conversions, one with the depth-slab sweep on two devices and the
+    """CPU conversions, one with the depth-slab sweep on two devices (two
+    processes joined by parallel/launch.py and parallel/group.py) and the
     PLY write, one with --sh_colour_eval --generate_mesh --save_sweep then
     the cleaning and the mesh, load no JAX, no bench harness and no module
     of gs2pc/."""
     script = textwrap.dedent(f"""
         import sys
         import gs2pc_torch.cli
+        import gs2pc_torch.parallel.group
+        import gs2pc_torch.parallel.launch
         from gs2pc_torch.io.ply import save_point_cloud_ply
         from gs2pc_torch.meshing import clean_point_cloud, generate_mesh
         from gs2pc_torch.pipeline import convert_3dgs_to_pc
