@@ -2,7 +2,8 @@
 against its plain PyTorch twin in every mode, runs the production
 conversion end to end through ``gs2pc_torch.cli.main``, runs the three
 multi-device sweeps at full width, as one-thread walks and as SPMD programs
-of one process per device, and checks what they produce.
+of one process per device, splits the sampler over those processes, and
+checks what they produce.
 
     python3 chip_smoke.py
 
@@ -23,12 +24,19 @@ Phases (each prints one line or more; any failure exits non-zero):
                distances on, through the native PLY writer; the CLI at
                its default --num_devices 0, so on a machine with several
                cards this and every later CLI phase sweeps one process per
-               card, and the launches checked are those of every rank
+               card, and the launches checked are those of every rank (K5
+               once a sampling on every rank: 1 a card here, 2 with
+               --generate_mesh); point_sampling beside the sampler's before K5
   7. timing    K1 and K2 on camera 0 of that scene, the shape the main path
                gives them: held against their twins with the bounds of
                phases 3-4 (K2 before and after the sort), then timed against
                them, each launch alone and through its wrapper (K2: count,
-               scan + sync, write); the distribution of K1's chunks entered
+               scan + sync, write); the distribution of K1's chunks entered;
+               then K5 on that scene at 10M points of quotas by size (key
+               PRNGKey(0)): owners and points equal to its twin on the card
+               bit for bit, the 2- and 4-block splits on one card equal to
+               the whole range, timed launch alone and through the wrapper
+               beside the twin and the bound
   8. slab      K1's three depth-slab passes of slab 1 of 4 on camera 0 of
                that scene (the real prefix and the real combined depth map),
                held against the twin and timed
@@ -95,14 +103,19 @@ Phases (each prints one line or more; any failure exits non-zero):
                walls and the spawned ranks' bring-up.  With several cards
                also the CLI at --num_devices 0 and --shard_axis gauss, PLYs
                byte-equal to the walk's, K1 and K2 launched 16 and 32 times
-               (3 x cards times that on the slabs) over all the ranks, and
-               a rank that raises over NCCL
+               (3 x cards times that on the slabs) over all the ranks, K5 once
+               on each, and a rank that raises over NCCL.  Each spawn also
+               runs the e2e conversion with --generate_mesh (convert_rank):
+               every rank samples its block of the cloud and of the surface
+               cloud with K5 (2 launches a rank), and both PLYs are
+               byte-equal to the walk's on the same devices, which samples
+               on one card
 The line before the last is the kernels' JSON record (max_abs_err at the
-shape of phases 7-8 and 10; ms the time through the wrapper, also given as
+shape of phases 7-8 and 10 (K5: phase 7's); ms the time through the wrapper, also given as
 wrapper_ms, and launch_ms the launch alone, K2's count + write; K3 as the
 mean of its nine ops and apart for roll and scan, the ops one PyTorch call
 computes (library_ms: torch.roll, torch.cumprod); launches from the e2e run
-for the main mode, from the depth-slab sweep of phase 9 for the others and
+for the main mode and K5, from the depth-slab sweep of phase 9 for the others and
 from the probe tools' run of phase 10 for K3 / K4), the last line the
 device record.
 """
@@ -153,6 +166,35 @@ FP32_FLOPS_PER_S = 67e12
 K1_BLEND_FLOPS = 30
 K1_SURF_FLOPS = 3
 TPX = 256
+
+# K5's operations per point, by piece (chip_smoke.k5_bound): a threefry2x32
+# block (20 rounds of add, rotate, xor; 5 key injections; the counter split
+# and the final xor), a float from its bits (shift, or, sub, scale, shift,
+# max), one erf_inv less its libm calls (square, negate, compare, shift, 8
+# Horner steps, the product, the edge test), the chi_3 CDF less its libm
+# calls (6 multiplies and subtracts), a bisection round less its CDF (add,
+# halve, compare, select), an owner-search probe (halve, load, compare,
+# select), and what remains (radius, norm, ratio, centre, scale, rotation:
+# 2 cross products, the quaternion sum, the mean).  The libm calls are
+# counted by their instructions on this card: expf 8, erff 14, log1pf 16,
+# sqrtf 6, an IEEE division 8.  Integer operations are counted against the
+# fp32 rate: the bound stays a least time.
+K5_THREEFRY_OPS = 77
+K5_FLOAT_OPS = 6
+K5_ERFINV_OPS = 24
+K5_CDF_OPS = 6
+K5_BISECT_OPS = 4
+K5_SEARCH_OPS = 4
+K5_REST_OPS = 60
+K5_LIBM_OPS = {"expf": 8, "erff": 14, "log1pf": 16, "sqrtf": 6, "div": 8}
+K5_BISECT_ROUNDS = 26
+# The e2e cell's point_sampling before K5 (PERF.md §5; NVIDIA H100
+# 80GB HBM3, 700.00 W).
+PARENT_POINT_SAMPLING_S = 0.154
+
+# K5 vs its twin: the same float operations in the same order, with the
+# libm functions PyTorch's CUDA kernels call (csrc/sampler.cu).
+TOL_K5 = 0.0
 
 # K3 / K4 vs their twins: the sums run in another order in K3 (warp
 # shuffles) than in its twin; K4 and its twin make the same operations, so
@@ -486,17 +528,19 @@ def check_cloud(result, out: str, label: str) -> int:
 def reset_launches() -> None:
     from gs2pc_torch.ops import blend_kernel as B
     from gs2pc_torch.ops import rasterize as R
+    from gs2pc_torch.ops import sampler as S
     from gs2pc_torch.parallel import launch
 
     B.blend_tiles.launches = 0
     R.duplicate_with_keys.launches = 0
+    S.sample_points.launches = 0
     launch.RANK_LAUNCHES.clear()
 
 
 def read_launches() -> dict:
-    """K1's and K2's launches since reset_launches(), this process's and
-    those of the ranks it spawned (one process per card of a multi-card
-    sweep) together."""
+    """K1's, K2's and K5's launches since reset_launches(), this process's
+    and those of the ranks it spawned (one process per card of a multi-card
+    conversion) together."""
     from gs2pc_torch.parallel import launch
 
     total = launch.kernel_launches()
@@ -507,13 +551,28 @@ def read_launches() -> dict:
 
 
 def launches_by_rank() -> list:
-    """[K1, K2] launches of each rank since reset_launches(), rank 0 (this
-    process) first."""
+    """[K1, K2, K5] launches of each rank since reset_launches(), rank 0
+    (this process) first."""
     from gs2pc_torch.parallel import launch
 
     ranks = [launch.kernel_launches()] + [launch.RANK_LAUNCHES[r]
                                           for r in sorted(launch.RANK_LAUNCHES)]
-    return [[c["blend_tiles"], c["duplicate_with_keys"]] for c in ranks]
+    return [[c["blend_tiles"], c["duplicate_with_keys"], c["sample_points"]] for c in ranks]
+
+
+def cli_ranks(sweeps: bool = True) -> int:
+    """The processes a CLI conversion at the default --num_devices runs:
+    one per card when it sweeps, one without a sweep."""
+    import torch
+
+    return torch.cuda.device_count() if sweeps else 1
+
+
+def conversion_launches(n_cams: int, samplings: int, sweeps: bool = True) -> dict:
+    """K1, K2 and K5 launches of a CLI conversion over all its ranks: one K1
+    and two K2 a camera, one K5 a sampling on every rank."""
+    return {"blend_tiles": n_cams, "duplicate_with_keys": 2 * n_cams,
+            "sample_points": samplings * cli_ranks(sweeps)}
 
 
 def e2e_argv(ply, tj, mask_dir, out, n_points=None):
@@ -545,7 +604,7 @@ def phase_e2e(device, work):
     wall = time.perf_counter() - t0
     launches = read_launches()
 
-    want = {"blend_tiles": N_E2E_CAMERAS, "duplicate_with_keys": 2 * N_E2E_CAMERAS}
+    want = conversion_launches(N_E2E_CAMERAS, 1)
     if launches != want:
         fail(f"kernel launches {launches}, expected {want}")
     n_file = check_cloud(result, out, "e2e")
@@ -558,8 +617,9 @@ def phase_e2e(device, work):
     print(f"e2e: {n_file} points (quota sum {int(result.cloud.counts.sum())}) in {wall:.2f}s, "
           f"{n_file / wall:,.0f} points/s disk to disk; writer {result.writer}; "
           f"launches {launches}; counters [pairs, win_drop, cap_drop, cap_live] = "
-          f"{result.sweep_diag}; max sampled |z| {zmax:.4f}; phases {json.dumps(phases)}",
-          flush=True)
+          f"{result.sweep_diag}; max sampled |z| {zmax:.4f}; point_sampling "
+          f"{phases['point_sampling']:.3f}s with K5 (before K5: {PARENT_POINT_SAMPLING_S}s, "
+          f"PERF.md §5); phases {json.dumps(phases)}", flush=True)
 
     os.remove(out)
     return arrays, launches, dict(ply=ply, tj=tj, masks=mask_dir, cols_u8=result.cloud.cols_u8)
@@ -636,6 +696,90 @@ def phase_timing(device, arrays):
           f"{ms['duplicate_with_keys_torch']:.3f} ms, bound "
           f"{bounds['duplicate_with_keys'][0]:.4f} ms (bytes)", flush=True)
     return ms, bounds, k1_err
+
+
+def k5_bound(n_gaussians: int, n_points: int):
+    """(bound_ms, bound_by) of one K5 call over ``n_points`` slots of
+    ``n_gaussians``, from this call's sizes.  Bytes, each read or written
+    once: the int64 quota prefix and xyz, log_scales, rots (48 B a
+    Gaussian); each point's xyz and int64 gid (20 B).  Operations a point
+    (the K5_* constants): four threefry blocks and floats from their bits,
+    three erf_inv with their log1pf and sqrtf, the CDF at the bound and the
+    26 bisection rounds with their erff and expf, the owner search
+    (ceil(log2(P + 1)) probes), three expf of the scales, a sqrtf and a
+    division, and the rest.  Every slot runs all of them, centres too."""
+    import math
+
+    libm = K5_LIBM_OPS
+    cdf = K5_CDF_OPS + libm["erff"] + libm["expf"]
+    per_point = (4 * (K5_THREEFRY_OPS + K5_FLOAT_OPS)
+                 + 3 * (K5_ERFINV_OPS + libm["log1pf"] + libm["sqrtf"])
+                 + cdf + K5_BISECT_ROUNDS * (K5_BISECT_OPS + cdf)
+                 + K5_SEARCH_OPS * math.ceil(math.log2(n_gaussians + 1))
+                 + 3 * libm["expf"] + libm["sqrtf"] + libm["div"] + K5_REST_OPS)
+    n_bytes = 48 * n_gaussians + 20 * n_points
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = per_point * n_points / FP32_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_k5(device, arrays):
+    """K5 at the e2e cell's width: the e2e scene (3M Gaussians, the PSD
+    clamp applied) and 10M points of quotas by size, key PRNGKey(0); held
+    to its twin run on the card and the blocks of a 2- and 4-way split on
+    one card to the whole range, bit for bit; then timed, launch alone and
+    through the wrapper, beside the twin and the bound."""
+    import torch
+
+    from gs2pc_torch.ops import prng
+    from gs2pc_torch.ops import sampler as S
+    from gs2pc_torch.parallel.mesh import split_evenly
+    from gs2pc_torch.tools.bench_kernels import launch_ms
+
+    g = scene_on_device(arrays, device).validate_covariances()
+    ppg = S.distribute_points(g.magnitudes(), N_POINTS)
+    n_cap = N_POINTS + max(4096, N_POINTS // 20)
+    key = prng.PRNGKey(0)
+    n = S.slot_count(ppg, n_cap)
+    label = f"{g.num_gaussians} Gaussians, {n} points"
+
+    k = S.sample_points(key, g, ppg, n_cap)
+    t = S.sample_points_torch(key, g, ppg, n_cap)
+    torch.cuda.synchronize()
+    if k.points.shape != (n, 3) or not torch.isfinite(k.points).all():
+        fail(f"K5, {label}: points of shape {tuple(k.points.shape)}, or not finite")
+    if not torch.equal(k.gaussian_idx, t.gaussian_idx):
+        fail(f"K5, {label}: the owners differ from the twin's")
+    differ = int((k.points != t.points).any(dim=1).sum())
+    err = float((k.points - t.points).abs().max())
+    if err > TOL_K5:
+        fail(f"K5, {label}: {differ} points differ from the twin's, max |err| {err}")
+    for parts in (2, 4):
+        blocks = [S.sample_points(key, g, ppg, n_cap, block=b).points
+                  for b in split_evenly(n, parts)]
+        if not torch.equal(torch.cat(blocks), k.points):
+            fail(f"K5, {label}: the {parts} blocks differ from the whole range")
+        del blocks
+    centres = int((ppg > 0).sum())
+    print(f"K5 vs twin, {label} ({centres} centres): owners equal, {differ} points differ, "
+          f"max |err| {err}; the 2- and 4-block splits equal the whole range bit for bit",
+          flush=True)
+    del k, t
+
+    def k5():
+        return S.sample_points(key, g, ppg, n_cap)
+
+    ms = dict(
+        launch_ms=launch_ms(k5, ["gs2pc_sample_points"], 10)["gs2pc_sample_points"],
+        wrapper_ms=cuda_ms(k5, 5),
+        plain_ms=cuda_ms(lambda: S.sample_points_torch(key, g, ppg, n_cap), 1),
+        bound=k5_bound(g.num_gaussians, n), max_abs_err=err,
+    )
+    print(f"timing, K5, {label}: launch alone {ms['launch_ms']:.4f} ms, through the wrapper "
+          f"{ms['wrapper_ms']:.4f} ms, twin {ms['plain_ms']:.3f} ms, bound "
+          f"{ms['bound'][0]:.4f} ms ({ms['bound'][1]}), "
+          f"{ms['bound'][0] / ms['launch_ms']:.1%} of the bound", flush=True)
+    return ms
 
 
 def phase_slab(device, arrays):
@@ -1039,9 +1183,9 @@ def phase_dense_cli(device, work):
     dense = cli.main(argv(os.path.join(work, "dense.ply"))
                      + ["--renderer_type", "dense", "--profile_dir", prof])
     wall = time.perf_counter() - t0
-    k1 = read_launches()["blend_tiles"]
-    if k1 != 0:
-        fail(f"the dense CLI launched K1 {k1} times")
+    dense_launches = read_launches()
+    if dense_launches["blend_tiles"] != 0 or dense_launches["sample_points"] != cli_ranks():
+        fail(f"the dense CLI launched {dense_launches}: K1 none, K5 {cli_ranks()} expected")
     n_dense = check_cloud(dense, os.path.join(work, "dense.ply"), "dense CLI")
     trace = os.path.join(prof, cli.TRACE_NAME)
     if not os.path.exists(trace):
@@ -1140,7 +1284,7 @@ def phase_sh(device, work, arrays, plain_cols, tj, mask_dir):
         result = cli.main(argv)
     wall = time.perf_counter() - t0
     launches = read_launches()
-    want = {"blend_tiles": N_E2E_CAMERAS, "duplicate_with_keys": 2 * N_E2E_CAMERAS}
+    want = conversion_launches(N_E2E_CAMERAS, 1)
     if launches != want:
         fail(f"SH conversion: kernel launches {launches}, expected {want}")
     n_file = check_cloud(result, out, "SH conversion")
@@ -1176,8 +1320,9 @@ def phase_sh(device, work, arrays, plain_cols, tj, mask_dir):
     res2 = pipeline.convert_3dgs_to_pc(ply, None, None, settings, device=device)
     writer = save_point_cloud_ply(res2.cloud, out2)
     wall2 = time.perf_counter() - t0
-    if read_launches()["blend_tiles"] != 0 or res2.sweep_diag is not None:
-        fail("the resumed conversion rendered")
+    resumed = read_launches()
+    if resumed != conversion_launches(0, 1, sweeps=False) or res2.sweep_diag is not None:
+        fail(f"the resumed conversion rendered or did not sample on one card: {resumed}")
     same = files_equal(out, out2)
     print(f"resume (--load_sweep, no transforms): accumulators equal the saved ones bit for "
           f"bit; {res2.cloud.total} points in {wall2:.2f}s ({writer} writer), load_sweep "
@@ -1246,7 +1391,7 @@ def phase_mesh(device, work, ply, tj, mask_dir):
             "--clean_pointcloud", "--generate_mesh", "--mesh_output_path", mesh_out])
     wall = time.perf_counter() - t0
     launches = read_launches()
-    want = {"blend_tiles": N_E2E_CAMERAS, "duplicate_with_keys": 2 * N_E2E_CAMERAS}
+    want = conversion_launches(N_E2E_CAMERAS, 2)
     if launches != want:
         fail(f"mesh conversion: kernel launches {launches}, expected {want}")
     n_file = check_cloud(result, out, "mesh conversion (cleaned cloud)")
@@ -1325,6 +1470,9 @@ def phase_auto_capacity(device, work, ply, tj, mask_dir):
     if rest or not 2 <= attempts <= AUTO_CAPACITY_ATTEMPTS:
         fail(f"--auto_capacity ran {launches['blend_tiles']} K1 launches on {n_cams} "
              "cameras: expected 2 or 3 sweeps")
+    if launches["sample_points"] != cli_ranks():
+        fail(f"--auto_capacity: K5 launched {launches['sample_points']} times, expected "
+             f"{cli_ranks()}")
     if material and attempts < AUTO_CAPACITY_ATTEMPTS:
         fail("--auto_capacity stopped while the drops were still material")
     check_cloud(result, out, "--auto_capacity conversion")
@@ -1374,9 +1522,10 @@ def phase_covariances(device):
 
 
 def launched() -> dict:
-    """K1 and K2 launches since reset_launches()."""
+    """K1, K2 and K5 launches since reset_launches()."""
     got = read_launches()
-    return {"K1": got["blend_tiles"], "K2": got["duplicate_with_keys"]}
+    return {"K1": got["blend_tiles"], "K2": got["duplicate_with_keys"],
+            "K5": got["sample_points"]}
 
 
 def phase_preview(device, work, ply, tj):
@@ -1398,7 +1547,7 @@ def phase_preview(device, work, ply, tj):
         "--device", str(device)])
     wall = time.perf_counter() - t0
     launches = launched()
-    want = {"K1": N_PREVIEW_CAMERAS, "K2": 2 * N_PREVIEW_CAMERAS}
+    want = {"K1": N_PREVIEW_CAMERAS, "K2": 2 * N_PREVIEW_CAMERAS, "K5": 0}
     if launches != want or len(written) != 2 * N_PREVIEW_CAMERAS:
         fail(f"preview: launches {launches} (expected {want}), {len(written)} files written")
     scene = render_preview.scene_arrays(render_preview.load_gaussians(ply, device=device))
@@ -1586,11 +1735,17 @@ def phase_spmd(device, splits, e2e, work):
 
     import torch
 
+    from gs2pc_torch import pipeline
     from gs2pc_torch.parallel import dryrun, launch, mesh
     from gs2pc_torch.parallel.mesh import split_evenly
     from gs2pc_torch.utils import log
+    from gs2pc_torch.utils.config import parse_args, settings_from_args
 
     n_cards = torch.cuda.device_count()
+    conv_argv = e2e_argv(e2e["ply"], e2e["tj"], e2e["masks"], os.path.join(work, "unused.ply")) \
+        + ["--surface_distance_std", "1e6", "--generate_mesh"]
+    conversion = (pipeline.convert_rank,
+                  (e2e["ply"], e2e["tj"], e2e["masks"], settings_from_args(parse_args(conv_argv))))
     cams_k1 = [hi - lo for lo, hi in split_evenly(N_E2E_CAMERAS, 2)]
     rows = [hi - lo for lo, hi in split_evenly(N_E2E_CAMERAS, 2)]
     groups = [([device] * 2, [("cams", "cameras", cams_k1)]),
@@ -1611,16 +1766,20 @@ def phase_spmd(device, splits, e2e, work):
             ("both", f"2-D on {n_cards} cards", [3 * blocks[r // g] for r in range(n_cards)]),
         ]))
     out = {}
+    log.set_quiet(True)
     for devices, jobs in groups:
         root = (splits["scene"], splits["cams"], None)
         log.reset_phases()
+        reset_launches()
         t0 = time.perf_counter()
         res = launch.run(launch.in_turn, devices,
-                         [(dryrun.sweep_rank, (split, splits["cfg"])) for split, _, _ in jobs],
-                         root=[root] * len(jobs))
+                         [(dryrun.sweep_rank, (split, splits["cfg"])) for split, _, _ in jobs]
+                         + [conversion], root=[root] * len(jobs) + [None])
         wall = time.perf_counter() - t0
+        k5_by_rank = [r[2] for r in launches_by_rank()]
         bringup = spmd_bringup()
         backend = "nccl" if len(set(devices)) > 1 else "gloo"
+        spmd_sampler(res.pop(), devices, conversion[1], k5_by_rank, work, backend)
         for (split, label, want_k1), (acc, sweep_wall, launches) in zip(jobs, res):
             if not same_bits(acc, splits["walks"][label]):
                 fail(f"spmd, {label}: the SPMD sweep differs from the walk")
@@ -1653,6 +1812,39 @@ def phase_spmd(device, splits, e2e, work):
     return out
 
 
+def spmd_sampler(res, devices, conv_args, k5_by_rank, work, backend) -> None:
+    """Hold an SPMD conversion's split samplings (the cloud and the
+    --generate_mesh surface cloud; each rank sampled a block of each with
+    K5) to the walk on the same devices, which samples on one card: both
+    PLYs byte-equal, and every rank's K5 launched once a sampling."""
+    from gs2pc_torch import pipeline
+    from gs2pc_torch.io.ply import save_point_cloud_ply
+    from gs2pc_torch.utils import log
+
+    label = f"spmd sampler, {len(devices)} ranks over {backend}"
+    if k5_by_rank != [2] * len(devices):
+        fail(f"{label}: K5 launches per rank {k5_by_rank}, expected 2 on each")
+    names = ("point_sampling", "surface_sampling")
+    split_s = [round(log.PHASE_SECONDS[k], 4) for k in names]
+    walk = pipeline._convert_walked(*conv_args, device=devices[0], devices=devices)
+    one_s = [round(log.PHASE_SECONDS[k], 4) for k in names]
+    sizes = []
+    for name in ("cloud", "surface_cloud"):
+        a, b = getattr(res, name), getattr(walk, name)
+        pa, pb = os.path.join(work, "spmd_split.ply"), os.path.join(work, "walk_split.ply")
+        save_point_cloud_ply(a, pa, chunk_size=10**6)
+        save_point_cloud_ply(b, pb, chunk_size=10**6)
+        if not files_equal(pa, pb):
+            fail(f"{label}: the {name}'s PLY differs from the walk's (one card samples)")
+        sizes.append(a.total)
+        os.remove(pa)
+        os.remove(pb)
+    print(f"{label}: the e2e conversion with --generate_mesh, {sizes[0]} + {sizes[1]} points "
+          f"sampled in {len(devices)} blocks; both PLYs byte-equal to the walk's, which samples "
+          f"on one card; K5 per rank {k5_by_rank}; [point_sampling, surface_sampling] split "
+          f"{split_s} s, on one card {one_s} s", flush=True)
+
+
 def spmd_cli(device, e2e, work, n_cards: int) -> dict:
     """The e2e CLI on every card: at --num_devices 0 (the camera split) and
     at --shard_axis gauss, one process per card over NCCL; each PLY
@@ -1679,9 +1871,10 @@ def spmd_cli(device, e2e, work, n_cards: int) -> dict:
         wall = time.perf_counter() - t0
         phases = {k: round(v, 4) for k, v in log.PHASE_SECONDS.items()}
         launches, by_rank = launched(), launches_by_rank()
-        if launches != {"K1": want_k1, "K2": 2 * want_k1} or len(by_rank) != n_cards:
+        want = {"K1": want_k1, "K2": 2 * want_k1, "K5": n_cards}
+        if launches != want or len(by_rank) != n_cards:
             fail(f"spmd CLI {label}: launches {launches} over {len(by_rank)} ranks "
-                 f"{by_rank}, expected K1 {want_k1} and K2 {2 * want_k1} over {n_cards}")
+                 f"{by_rank}, expected {want} over {n_cards}")
         n_file = check_cloud(res, ply, f"spmd CLI {label}")
         args = parse_args(argv)
         walk = pipeline._convert_walked(
@@ -1696,7 +1889,8 @@ def spmd_cli(device, e2e, work, n_cards: int) -> dict:
         os.remove(walk_ply)
         out[f"cli {label}"] = wall
         print(f"spmd CLI {label}: {n_file} points in {wall:.3f}s, PLY byte-equal to the walk's; "
-              f"launches {launches}, [K1, K2] per rank {by_rank}; phases {json.dumps(phases)}",
+              f"launches {launches}, [K1, K2, K5] per rank {by_rank}; phases "
+              f"{json.dumps(phases)}",
               flush=True)
     return out
 
@@ -1831,6 +2025,7 @@ def main() -> int:
         phase_preview(device, work, e2e["ply"], e2e["tj"])
         phase_convert(work, e2e["ply"])
         ms, bounds, k1_err = phase_timing(device, arrays)
+        k5 = phase_k5(device, arrays)
         slab = phase_slab(device, arrays)
         launches.update(phase_sharded(device, arrays))
         splits = phase_splits(device, arrays)
@@ -1887,6 +2082,9 @@ def main() -> int:
         entry("probe_blend", "gs2pc_torch/csrc/probes.cu", "tools/pallas_probe2.py:158",
               probe_launches["probe_blend"], k4["max_abs_err"], k4["ms"], k4["plain_ms"],
               k4["bound"], k4["launch_ms"]),
+        entry("sample_points", "gs2pc_torch/csrc/sampler.cu", "gs2pc/ops/sampler.py:149",
+              launches["sample_points"], k5["max_abs_err"], k5["wrapper_ms"], k5["plain_ms"],
+              k5["bound"], k5["launch_ms"]),
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

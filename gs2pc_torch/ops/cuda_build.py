@@ -58,6 +58,11 @@ _SIGNATURES = {
     "gs2pc_probe_op": (_I, [_I, _P, _P, _P]),
     "gs2pc_probe_floor": (_I, [_P]),
     "gs2pc_probe_blend": (_I, [_I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P]),
+    "gs2pc_sample_points": (
+        _I,
+        [_P, _I, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_uint32,
+         ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, _P, _P, _P],
+    ),
 }
 
 

@@ -8,8 +8,12 @@ direction of a standard normal draw, and a radius from the inverse CDF of
 the chi_3 distribution truncated to [0, std] by bisection.  Rank 0 of each
 Gaussian's quota is its exact centre.
 
-Randomness comes from an explicit ``torch.Generator``; ``sample_points``
-also accepts injected draws so tests can feed it JAX's.
+The draws are JAX's own (gs2pc_torch.ops.prng: threefry keyed on each
+slot's global counter), so the port's cloud equals the JAX package's for
+the same seed, and any block of slots can be sampled apart (the SPMD
+conversion's point-axis split).  ``sample_points`` launches K5
+(gs2pc_torch/csrc/sampler.cu) on CUDA tensors and runs its twin,
+``sample_points_torch``, on CPU tensors.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from gs2pc_torch.ops import prng
 from gs2pc_torch.ops.quaternion import quat_rotate
 
 _SQRT_2_OVER_PI = 0.7978845608028654
@@ -87,45 +92,123 @@ def chi3_truncated_radius(u: torch.Tensor, std: float, iters: int = 26) -> torch
 
 
 class SampledPoints(NamedTuple):
-    points: torch.Tensor  # (n, 3) float32, n = min(sum of quotas, n_cap)
-    gaussian_idx: torch.Tensor  # (n,) int64 source Gaussian
+    points: torch.Tensor  # (m, 3) float32: slots [lo, hi) of the n = min(quota sum, n_cap)
+    gaussian_idx: torch.Tensor  # (m,) int64 source Gaussian
+
+
+class SamplerScene(NamedTuple):
+    """What the sampler reads of a scene (a Gaussians has these fields)."""
+
+    xyz: torch.Tensor  # (P, 3) float32
+    log_scales: torch.Tensor  # (P, 3) float32
+    rots: torch.Tensor  # (P, 4) float32, wxyz
+
+
+def slot_count(points_per_gaussian: torch.Tensor, n_cap: int,
+               max_points: Optional[int] = None) -> int:
+    """n, the slots sampled: the quota sum, cut at ``max_points`` and
+    ``n_cap`` (quotas beyond are dropped at the end of the slot order)."""
+    total = int(points_per_gaussian.to(torch.int64).sum())
+    if max_points is not None:
+        total = min(total, int(max_points))
+    return min(total, n_cap)
+
+
+def _block(block: Optional[tuple], n: int) -> tuple:
+    lo, hi = (0, n) if block is None else (int(block[0]), int(block[1]))
+    hi = min(max(hi, 0), n)
+    return min(max(lo, 0), hi), hi
 
 
 def sample_points(
+    key: torch.Tensor,
     gaussians,
     points_per_gaussian: torch.Tensor,
     n_cap: int,
     mahalanobis_std: float = 2.0,
     max_points: Optional[int] = None,
-    generator: Optional[torch.Generator] = None,
     draws: Optional[tuple] = None,
+    block: Optional[tuple] = None,
 ) -> SampledPoints:
-    """Draw every point of the cloud in one pass.
+    """Slots ``block`` = [lo, hi) (default: all n, see slot_count) of the
+    cloud, with JAX's draws under ``key`` (gs2pc_torch.ops.prng; JAX's
+    sample_points(key, ...) with the same key draws the same numbers).
 
-    Quotas beyond ``n_cap`` (or ``max_points``) are cut at the end of the
-    slot order.  Randomness: ``generator`` draws zn (n, 3) standard normal
-    and u (n,) uniform; ``draws = (zn, u)`` injects them instead (at least
-    n rows each; slot i uses row i)."""
+    Each slot's values depend on the slot alone, so blocks concatenated in
+    order equal the whole range bit for bit.  K5 (gs2pc_torch/csrc/
+    sampler.cu) for CUDA tensors; for CPU tensors its twin,
+    sample_points_torch, which alone takes injected ``draws = (zn, u)``
+    (rows indexed by slot)."""
+    dev = points_per_gaussian.device
+    if dev.type == "cpu":
+        return sample_points_torch(key, gaussians, points_per_gaussian, n_cap, mahalanobis_std,
+                                   max_points, draws, block)
+    if dev.type != "cuda":
+        raise ValueError(f"sample_points: unsupported device {dev}")
+    if draws is not None:
+        raise ValueError("sample_points: injected draws run on the CPU twin only")
+    from gs2pc_torch.ops.cuda_build import check, launch, load_library, stream_ptr
+
+    P = points_per_gaussian.shape[0]
+    xyz, log_scales, rots = (t.contiguous() for t in (gaussians.xyz, gaussians.log_scales,
+                                                      gaussians.rots))
+    for name, t, w in (("xyz", xyz, 3), ("log_scales", log_scales, 3), ("rots", rots, 4)):
+        if t.dtype != torch.float32 or t.shape != (P, w) or t.device != dev:
+            raise ValueError(f"sample_points: {name} must be a ({P}, {w}) float32 tensor on {dev}")
+    prefix = torch.cumsum(points_per_gaussian.to(torch.int64), 0)
+    n = slot_count(points_per_gaussian, n_cap, max_points)
+    lo, hi = _block(block, n)
+    points = torch.empty((hi - lo, 3), dtype=torch.float32, device=dev)
+    gid = torch.empty(hi - lo, dtype=torch.int64, device=dev)
+    if hi > lo:
+        (kz0, kz1), (ku0, ku1) = prng.split(key).tolist()
+        lib = load_library()
+        rc = launch(
+            lib.gs2pc_sample_points, prefix, prefix.data_ptr(), P, xyz.data_ptr(),
+            log_scales.data_ptr(), rots.data_ptr(), lo, hi - lo, kz0, kz1, ku0, ku1,
+            float(mahalanobis_std), points.data_ptr(), gid.data_ptr(), stream_ptr(prefix),
+        )
+        sample_points.launches += 1
+        check(rc, "gs2pc_sample_points")
+    return SampledPoints(points=points, gaussian_idx=gid)
+
+
+# Kernel launches (an empty block launches nothing); a caller resets it (= 0).
+sample_points.launches = 0
+
+
+def sample_points_torch(
+    key: torch.Tensor,
+    gaussians,
+    points_per_gaussian: torch.Tensor,
+    n_cap: int,
+    mahalanobis_std: float = 2.0,
+    max_points: Optional[int] = None,
+    draws: Optional[tuple] = None,
+    block: Optional[tuple] = None,
+) -> SampledPoints:
+    """K5's twin, on any device: the slot's owner by a search of the quota
+    prefix, its draws from gs2pc_torch.ops.prng at the global slot counters
+    (or rows of ``draws``), then the radius, direction, scale and rotation
+    in K5's order of float operations."""
     ppg = points_per_gaussian.to(torch.int64)
     dev = ppg.device
-    total = int(ppg.sum())
-    if max_points is not None:
-        total = min(total, int(max_points))
-    n = min(total, n_cap)
-
-    gid = torch.repeat_interleave(torch.arange(ppg.shape[0], device=dev), ppg)[:n]
-    is_centre = torch.zeros(n, dtype=torch.bool, device=dev)
-    first = (torch.cumsum(ppg, 0) - ppg)[ppg > 0]
-    is_centre[first[first < n]] = True
+    prefix = torch.cumsum(ppg, 0)
+    lo, hi = _block(block, slot_count(ppg, n_cap, max_points))
+    slots = torch.arange(lo, hi, device=dev)
+    gid = torch.searchsorted(prefix, slots, right=True)
+    is_centre = slots == prefix[gid] - ppg[gid]
 
     if draws is not None:
-        zn = torch.as_tensor(draws[0], dtype=torch.float32, device=dev)[:n]
-        u = torch.as_tensor(draws[1], dtype=torch.float32, device=dev)[:n]
+        zn = torch.as_tensor(draws[0], dtype=torch.float32, device=dev)[lo:hi]
+        u = torch.as_tensor(draws[1], dtype=torch.float32, device=dev)[lo:hi]
     else:
-        zn = torch.randn((n, 3), generator=generator, device=dev, dtype=torch.float32)
-        u = torch.rand((n,), generator=generator, device=dev, dtype=torch.float32)
+        kz, ku = prng.split(key)
+        zn = prng.normal(kz, 3 * lo, 3 * hi, device=dev).view(-1, 3)
+        u = prng.uniform(ku, lo, hi, device=dev)
     r = chi3_truncated_radius(u, mahalanobis_std)
-    norm = torch.sqrt((zn * zn).sum(-1))
+    zx, zy, zz = zn.unbind(1)
+    norm = torch.sqrt(zx * zx + zy * zy + zz * zz)
     z = zn * (r / torch.clamp(norm, min=1e-12))[:, None]
     z = torch.where(is_centre[:, None], 0.0, z)
 
@@ -135,7 +218,7 @@ def sample_points(
 
 
 def generate_pointcloud(
-    generator: torch.Generator,
+    key: torch.Tensor,
     gaussians,
     num_points: int,
     contributions: Optional[torch.Tensor] = None,
@@ -144,10 +227,10 @@ def generate_pointcloud(
     n_cap: Optional[int] = None,
 ) -> SampledPoints:
     """The whole point generation (gs2pc.ops.sampler.generate_pointcloud,
-    gauss_to_pc.py:277-371): size -> distribute -> flat sample, with the
-    draws from ``generator`` (JAX takes a key).  ``exact_num_points``
-    switches to largest-remainder quotas and a hard cap, so the cloud has
-    exactly ``num_points`` points."""
+    gauss_to_pc.py:277-371): size -> distribute -> flat sample, with JAX's
+    draws under ``key``.  ``exact_num_points`` switches to
+    largest-remainder quotas and a hard cap, so the cloud has exactly
+    ``num_points`` points."""
     sizes = gaussians.magnitudes(contributions=contributions)
     ppg = distribute_points(sizes, num_points, exact=exact_num_points)
     if n_cap is None:
@@ -155,8 +238,8 @@ def generate_pointcloud(
         # margin makes truncation practically impossible.
         n_cap = int(num_points + max(4096, num_points // 20))
     return sample_points(
-        gaussians, ppg, n_cap=n_cap, mahalanobis_std=mahalanobis_std,
-        max_points=num_points if exact_num_points else None, generator=generator,
+        key, gaussians, ppg, n_cap=n_cap, mahalanobis_std=mahalanobis_std,
+        max_points=num_points if exact_num_points else None,
     )
 
 

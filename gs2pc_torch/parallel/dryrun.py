@@ -19,10 +19,11 @@ camera split is exact (the total contribution within f32 summation
 order); the depth-slab and 2-D sweeps
 are held to tests/test_sharding.py's bounds, with their drop counters
 equal (their pairs-blended count differs: slab passes 1-2 blend with the
-adaptive radius, as in the JAX package).  The port's sampler runs on
-``devices[0]`` whatever the number of devices (gs2pc_torch.pipeline), so
-its phase checks what the JAX dry run checks: more than 1000 valid points,
-here also all finite.
+adaptive radius, as in the JAX package).  The sampler's point axis is
+split over the SPMD ranks, as the JAX dry run shards it
+(gs2pc_torch.pipeline.sample_on_axis); its phase checks what the JAX dry
+run checks, more than 1000 valid points, and that they are finite and
+equal to one device's bit for bit.
 """
 
 from __future__ import annotations
@@ -36,11 +37,13 @@ import torch
 
 from gs2pc_torch.camera import build_camera_batch
 from gs2pc_torch.models.gaussians import Gaussians
+from gs2pc_torch.ops import prng
 from gs2pc_torch.ops.blend import FLOAT_MAX
 from gs2pc_torch.ops.rasterize import TileConfig
 from gs2pc_torch.ops.sampler import distribute_points, sample_points
 from gs2pc_torch.parallel import gauss_shard, launch, mesh
 from gs2pc_torch.parallel.group import backend_for
+from gs2pc_torch.pipeline import SamplingJob, sample_on_axis
 from gs2pc_torch.sweep import (
     broadcast_sweep_inputs,
     render_arrays,
@@ -90,7 +93,8 @@ def sweep_rank(axis, split: str, cfg: TileConfig, root=None):
 
 
 def _launches() -> list:
-    return list(launch.kernel_launches().values())
+    counts = launch.kernel_launches()
+    return [counts["blend_tiles"], counts["duplicate_with_keys"]]
 
 
 class PlantedFailure(RuntimeError):
@@ -182,7 +186,7 @@ def _diff_text(diffs: dict) -> str:
 
 def _verdict(n: int, axis: str, ok: bool, diffs: dict, spmd: str = "") -> str:
     verdict = "OK" if ok else "DIFFERS"
-    what = "sampled on devices[0]" if axis == "points" else "max |d| vs one device"
+    what = "split over the SPMD ranks" if axis == "points" else "max |d| vs one device"
     return f"dryrun_multichip({n}) {axis}: {verdict}; {what}: {_diff_text(diffs)}{spmd}"
 
 
@@ -209,8 +213,15 @@ def dryrun_multichip(n_devices: int, device="cuda:0") -> dict:
     if n_devices >= 4:
         splits["2-D"] = "both"
     walks = {axis: WALKS[split](scene, cams, cfg, devices) for axis, split in splits.items()}
-    spmd = launch.run(launch.in_turn, devices, [(sweep_rank, (s, cfg)) for s in splits.values()],
-                      root=[(scene, cams, None)] * len(splits))
+    ppg = distribute_points(g.magnitudes(contributions=walks["cams"].total_contribution),
+                            N_POINTS)
+    job = SamplingJob(key=prng.PRNGKey(0).tolist(), n_cap=N_CAP, std=2.0, max_points=None)
+    spmd = launch.run(launch.in_turn, devices,
+                      [(sweep_rank, (s, cfg)) for s in splits.values()]
+                      + [(sample_on_axis, (job,))],
+                      root=[(scene, cams, None)] * len(splits)
+                      + [(ppg, g.xyz, g.log_scales, g.rots)])
+    split_points = spmd.pop()
     spmd = {axis: acc for axis, (acc, _, _) in zip(splits, spmd)}
     backend = backend_for(devices)
 
@@ -238,14 +249,11 @@ def dryrun_multichip(n_devices: int, device="cuda:0") -> dict:
             note += f"; SPMD max |d| vs one device: {_diff_text(s_d)}"
         report(axis, ok and s_ok and same, d, note)
         if axis == "cams":
-            ppg = distribute_points(g.magnitudes(contributions=walks[axis].total_contribution),
-                                    N_POINTS)
-            gen = torch.Generator(device=home)
-            gen.manual_seed(0)
-            pts = sample_points(g, ppg, n_cap=N_CAP, generator=gen).points
-            n_valid, finite = pts.shape[0], int(torch.isfinite(pts).all())
-            report("points", n_valid > MIN_VALID and finite == 1,
-                   {"valid": n_valid, "finite": finite})
+            one_pts = sample_points(torch.tensor(job.key), g, ppg, n_cap=N_CAP).points
+            n_valid, finite = split_points.shape[0], int(torch.isfinite(split_points).all())
+            same = int(torch.equal(split_points, one_pts))
+            report("points", n_valid > MIN_VALID and finite == 1 and same == 1,
+                   {"valid": n_valid, "finite": finite, "bit-equal to one device": same})
     if failed:
         raise ValueError(f"dryrun_multichip({n_devices}): {', '.join(failed)} differ from "
                          "one device or from the walk")

@@ -7,6 +7,7 @@ device and a ``torch.distributed`` process group, and offers the
 collectives the sharded sweeps combine with:
 
   all_gather(t)  -> (D, *t.shape) on the rank's device, in rank order
+  gather_blocks  every rank's block of rows, concatenated on rank 0 (all_gather)
   psum(t)        all_gather, then ``.sum(0)``
   pmax / pmin    ``all_reduce`` MAX / MIN
   broadcast_*    rank 0's tensors or object to every rank
@@ -102,6 +103,22 @@ class Axis:
 
     def pmin(self, t: torch.Tensor) -> torch.Tensor:
         return self._all_reduce(t, dist.ReduceOp.MIN)
+
+    def gather_blocks(self, t: torch.Tensor, lengths: Sequence[int]) -> Optional[torch.Tensor]:
+        """Rank r's ``t`` of ``lengths[r]`` rows, concatenated in rank order
+        on rank 0 (None on the others).  The blocks cross padded to the
+        longest, by all_gather: NCCL's point-to-point ``gather`` took
+        0.6-0.8 s a conversion on four H100s against a few milliseconds for
+        all_gather, whose rings the sweep has already built (PERF.md)."""
+        width = max(lengths)
+        if width == 0:
+            return t if self.rank == 0 else None
+        buf = torch.zeros((width, *t.shape[1:]), dtype=t.dtype, device=t.device)
+        buf[:t.shape[0]] = t
+        parts = self.all_gather(buf)
+        if self.rank != 0:
+            return None
+        return torch.cat([p[:n] for p, n in zip(parts, lengths)])
 
     def broadcast_object(self, obj: Any = None) -> Any:
         """Rank 0's picklable ``obj`` on every rank."""

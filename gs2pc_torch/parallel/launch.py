@@ -26,8 +26,8 @@ load it.  The other ranks log nothing; each sends its phase seconds
   spmd_group_init    joining the process group (rank 0: from the first
                      spawn until every rank has joined)
 
-Each spawned rank also reports its launches of the sweeps' kernels (K1
-and K2, kernel_launches), which rank 0 adds to RANK_LAUNCHES: the
+Each spawned rank also reports its launches of the conversion's kernels
+(K1, K2 and K5, kernel_launches), which rank 0 adds to RANK_LAUNCHES: the
 wrappers' own counts in this process are rank 0's alone.
 
 A rank that raises fails the run: rank 0 stops every other rank at once
@@ -70,12 +70,13 @@ RANK_LAUNCHES: dict = {}
 
 
 def kernel_launches() -> dict:
-    """This process's launches of the sweeps' kernels, by wrapper (each
-    wrapper counts its own launches; see gs2pc_torch.ops)."""
-    from gs2pc_torch.ops import blend_kernel, rasterize
+    """This process's launches of the conversion's kernels, by wrapper
+    (each wrapper counts its own launches; see gs2pc_torch.ops)."""
+    from gs2pc_torch.ops import blend_kernel, rasterize, sampler
 
     return {"blend_tiles": blend_kernel.blend_tiles.launches,
-            "duplicate_with_keys": rasterize.duplicate_with_keys.launches}
+            "duplicate_with_keys": rasterize.duplicate_with_keys.launches,
+            "sample_points": sampler.sample_points.launches}
 
 
 class RemoteTraceback(Exception):

@@ -7,11 +7,12 @@ Culled Gaussians stay in place with keep_mask False and get a zero point
 quota, as in the JAX package, so every cull predicate sees the initial set.
 A sweep over several devices is an SPMD program (gs2pc_torch.parallel.
 launch): this process is rank 0, parses the scene once and broadcasts it,
-and alone runs everything after the sweep.  The sampler runs on the first
-device whatever the number of devices: the JAX package's split of its
-point axis changes no value, and placing the slots in blocks over the
-devices was slower than one device on an H100 (PERF.md, Findings), so it
-is not ported.
+and runs the cull chain and the writer alone.  The sampler's point axis is
+split over the same ranks, as the JAX package shards it
+(gs2pc/pipeline.py:540-579): rank 0 broadcasts the sampler's inputs, rank r
+samples block r of the slots with K5, and rank 0 gathers the blocks.  The
+draws are keyed on the global slot (gs2pc_torch.ops.prng), so the split
+cloud equals one device's bit for bit.
 """
 
 from __future__ import annotations
@@ -30,9 +31,15 @@ from gs2pc_torch.io.masks import load_image_masks
 from gs2pc_torch.io.ply import PointCloud
 from gs2pc_torch.meshing_native import MeshResult
 from gs2pc_torch.models.gaussians import Gaussians
+from gs2pc_torch.ops import prng
 from gs2pc_torch.ops.blend import FLOAT_MAX
 from gs2pc_torch.ops.rasterize import TileConfig
-from gs2pc_torch.ops.sampler import distribute_points, sample_points
+from gs2pc_torch.ops.sampler import (
+    SamplerScene,
+    distribute_points,
+    sample_points,
+    slot_count,
+)
 from gs2pc_torch.parallel import launch, mesh
 from gs2pc_torch.parallel.gauss_shard import (
     render_sweep_2d,
@@ -146,16 +153,56 @@ def tile_config(settings: GaussPointCloudSettings, width_pad: int, height_pad: i
     )
 
 
+class SamplingJob(NamedTuple):
+    """One sampling's settings, as rank 0 sends them to the other ranks."""
+
+    key: list  # the two words of prng.PRNGKey(seed)
+    n_cap: int
+    std: float
+    max_points: Optional[int]
+
+
+def sample_on_axis(axis, job: SamplingJob, root=None) -> Optional[torch.Tensor]:
+    """One sampling split over the ranks of ``axis`` (a rank function of
+    gs2pc_torch.parallel.launch.run): rank 0's ``root`` = (quotas, xyz,
+    log_scales, rots) broadcast, rank r samples block r of
+    mesh.split_evenly(n, ranks) with K5, and rank 0 gathers the blocks in
+    rank order.  Rank 0 gets the (n, 3) points, the others None.  Each step
+    is a phase (sample_broadcast, sample_block, sample_gather), summed over
+    a conversion's samplings."""
+    with log.phase("sample_broadcast"):
+        ppg, xyz, log_scales, rots = axis.broadcast_tensors(root)
+    with log.phase("sample_block"):
+        blocks = mesh.split_evenly(slot_count(ppg, job.n_cap, job.max_points), axis.size)
+        part = sample_points(
+            torch.tensor(job.key), SamplerScene(xyz, log_scales, rots), ppg, job.n_cap,
+            job.std, job.max_points, block=blocks[axis.rank],
+        ).points
+    with log.phase("sample_gather"):
+        return axis.gather_blocks(part, [hi - lo for lo, hi in blocks])
+
+
+def serve_samplings(axis) -> None:
+    """A rank other than 0 of an SPMD conversion, after the sweep: its block
+    of every sampling rank 0 starts (generate_point_cloud), until rank 0
+    sends the end (None)."""
+    while (job := axis.broadcast_object()) is not None:
+        sample_on_axis(axis, job)
+
+
 def generate_point_cloud(
     gaussians: Gaussians,
     settings: GaussPointCloudSettings,
     contributions: Optional[torch.Tensor] = None,
     num_points: Optional[int] = None,
     seed_offset: int = 0,
+    axis=None,
 ) -> PointCloud:
     """Quotas -> sampled positions -> host point cloud, for
-    ``num_points`` (default ``settings.num_points``) drawn with the
-    generator seeded ``settings.seed + seed_offset``."""
+    ``num_points`` (default ``settings.num_points``) drawn with JAX's key
+    ``PRNGKey(settings.seed + seed_offset)`` (gs2pc/pipeline.py:589).  On
+    rank 0 of an SPMD ``axis`` the slots are split over its ranks
+    (sample_on_axis; the others run serve_samplings)."""
     if num_points is None:
         num_points = settings.num_points
     sizes = gaussians.magnitudes(contributions=contributions)
@@ -163,16 +210,20 @@ def generate_point_cloud(
     ppg = distribute_points(
         sizes, num_points, mask=gaussians.keep_mask, exact=settings.exact_num_points
     )
-    n_cap = int(num_points + max(4096, num_points // 20))
-    gen = torch.Generator(device=gaussians.device)
-    gen.manual_seed(settings.seed + seed_offset)
-    sampled = sample_points(
-        gaussians, ppg, n_cap=n_cap,
-        mahalanobis_std=settings.mahalanobis_distance_std,
+    job = SamplingJob(
+        key=prng.PRNGKey(settings.seed + seed_offset).tolist(),
+        n_cap=int(num_points + max(4096, num_points // 20)),
+        std=settings.mahalanobis_distance_std,
         max_points=num_points if settings.exact_num_points else None,
-        generator=gen,
     )
-    total = sampled.points.shape[0]
+    if axis is None:
+        points = sample_points(torch.tensor(job.key), gaussians, ppg, job.n_cap, job.std,
+                               job.max_points).points
+    else:
+        axis.broadcast_object(job)
+        points = sample_on_axis(axis, job, (ppg, gaussians.xyz, gaussians.log_scales,
+                                            gaussians.rots))
+    total = points.shape[0]
     counts = ppg.cpu().numpy().astype(np.int64)
     cum = np.cumsum(counts)
     over = cum > total
@@ -182,7 +233,7 @@ def generate_point_cloud(
         counts[first + 1:] = 0
     cols_u8 = torch.clamp(gaussians.colours, 0.0, 255.0).to(torch.uint8)
     return PointCloud(
-        points=sampled.points.cpu().numpy(),
+        points=points.cpu().numpy(),
         counts=counts,
         cols_u8=cols_u8.cpu().numpy(),
         gauss_normals=None if gaussians.normals is None else gaussians.normals.cpu().numpy(),
@@ -365,9 +416,11 @@ def convert_3dgs_to_pc(
 
     A sweep over several devices runs as an SPMD program, one process per
     device (gs2pc_torch.parallel.launch; this process is rank 0 on
-    ``device`` and runs everything but the sweep alone, convert_rank); a
-    failed rank fails the conversion.  Each such conversion starts its
-    ranks anew (PERF.md gives what that costs)."""
+    ``device``, convert_rank): the ranks share the sweep and the samplings,
+    rank 0 alone runs the rest; a failed rank fails the conversion.  Each
+    such conversion starts its ranks anew (PERF.md gives what that costs).
+    A conversion with no sweep (--load_sweep, --no_render_colours) or on
+    one device samples on ``device``, with the same values."""
     device, settings, devices = _conversion_devices(settings, device, num_devices)
     sweeps = settings.render_colours and settings.load_sweep is None
     if len(devices) > 1 and sweeps:
@@ -379,11 +432,13 @@ def convert_3dgs_to_pc(
 
 
 def _convert_walked(input_path, transform_path, mask_path, settings, *, device,
-                    num_devices: int = 1) -> Conversion:
+                    num_devices: int = 1, devices: Optional[Sequence] = None) -> Conversion:
     """convert_3dgs_to_pc with its sweep over several devices walked in turn
-    from this thread: the SPMD conversion's twin, which the checks hold it
-    to."""
-    device, settings, devices = _conversion_devices(settings, device, num_devices)
+    from this thread and its samplings on ``device``: the SPMD conversion's
+    twin, which the checks hold it to.  ``devices`` replaces the sweep's
+    devices (a device may repeat: [cuda:0] * 2 stands for two cards)."""
+    device, settings, found = _conversion_devices(settings, device, num_devices)
+    devices = found if devices is None else list(devices)
     return _convert(input_path, transform_path, mask_path, settings, device,
                     lambda g, cams, s: sweep_with_capacity(g, cams, s, devices))
 
@@ -400,19 +455,26 @@ def _conversion_devices(settings, device, num_devices: int) -> tuple:
 
 def convert_rank(axis, input_path, transform_path, mask_path, settings, root=None):
     """The SPMD conversion's rank function (gs2pc_torch.parallel.launch.run):
-    rank 0 runs the whole conversion on its device with the sweep shared
-    over ``axis``; the other ranks take part in the sweep only."""
+    rank 0 runs the whole conversion on its device with the sweep and the
+    samplings shared over ``axis``; the other ranks take part in the sweep
+    and sample their blocks.  A rank 0 that raises before it ends the
+    samplings fails the run (launch.run stops the waiting ranks)."""
     set_precision()
     if axis.rank > 0:
         sweep_with_capacity_spmd(axis, None, None, settings)
+        serve_samplings(axis)
         return None
-    return _convert(input_path, transform_path, mask_path, settings, axis.device,
-                    lambda g, cams, s: sweep_with_capacity_spmd(axis, g, cams, s))
+    result = _convert(input_path, transform_path, mask_path, settings, axis.device,
+                      lambda g, cams, s: sweep_with_capacity_spmd(axis, g, cams, s), axis)
+    axis.broadcast_object(None)
+    return result
 
 
-def _convert(input_path, transform_path, mask_path, settings, device, sweep) -> Conversion:
+def _convert(input_path, transform_path, mask_path, settings, device, sweep,
+             axis=None) -> Conversion:
     """convert_3dgs_to_pc on ``device`` with ``sweep(gaussians, cameras,
-    settings) -> (accumulators, counters)``."""
+    settings) -> (accumulators, counters)``, the samplings split over the
+    SPMD ``axis`` when one is given (rank 0's side)."""
     transforms = intrinsics = None
     if transform_path is not None:
         with log.phase("camera_poses"):
@@ -486,12 +548,13 @@ def _convert(input_path, transform_path, mask_path, settings, device, sweep) -> 
     with log.phase("psd_validate"):
         gaussians = gaussians.validate_covariances()
     with log.phase("point_sampling"):
-        cloud = generate_point_cloud(gaussians, settings, contributions=contributions)
+        cloud = generate_point_cloud(gaussians, settings, contributions=contributions,
+                                     axis=axis)
     if surface_keep is None:
         return Conversion(cloud, diag)
 
     # The mesh's point cloud: the surface Gaussians alone, 25 points each
-    # at most, from the generator seeded seed + 1.
+    # at most, drawn with the key of seed + 1.
     surface = gaussians.add_to_cull(surface_keep)
     n_surface = int(surface.keep_mask.sum())
     n_mesh = min(settings.num_points // 2, n_surface * AVG_POINTS_PER_GAUSS_FOR_MESH)
@@ -499,6 +562,6 @@ def _convert(input_path, transform_path, mask_path, settings, device, sweep) -> 
              f"{n_surface} surface Gaussians")
     with log.phase("surface_sampling"):
         surface_cloud = generate_point_cloud(surface, settings, contributions=contributions,
-                                             num_points=n_mesh, seed_offset=1)
+                                             num_points=n_mesh, seed_offset=1, axis=axis)
     return Conversion(cloud, diag, surface_cloud=surface_cloud,
                       surface_quota=(n_surface, n_mesh))

@@ -26,7 +26,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from gs2pc_torch.ops import blend_kernel
+from gs2pc_torch.ops import blend_kernel, prng
 from gs2pc_torch.ops import rasterize as R
 from gs2pc_torch.ops.projection import preprocess
 from gs2pc_torch.ops.sampler import distribute_points, sample_points
@@ -122,7 +122,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     def sampling():
         ppg = distribute_points(g.magnitudes(contributions=contrib), args.points)
-        return sample_points(g, ppg, n_cap=n_cap, generator=gen).points
+        return sample_points(prng.PRNGKey(1), g, ppg, n_cap=n_cap).points
 
     show(f"point sampling ({args.points} pts)", cuda_ms(sampling, args.reps), per_cam=False)
     return ms

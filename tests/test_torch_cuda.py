@@ -14,8 +14,11 @@ from gs2pc_torch import pipeline
 from gs2pc_torch.camera import build_camera_batch
 from gs2pc_torch.models.gaussians import Gaussians
 from gs2pc_torch.ops import blend_kernel as B
+from gs2pc_torch.ops import prng
 from gs2pc_torch.ops import rasterize as R
+from gs2pc_torch.ops import sampler as S
 from gs2pc_torch.ops.projection import preprocess
+from gs2pc_torch.parallel import mesh
 from gs2pc_torch.utils import capture
 from gs2pc_torch.utils.config import GaussPointCloudSettings, RenderConfig
 
@@ -350,8 +353,10 @@ def test_conversion_on_card(cuda, tmp_path):
         render=RenderConfig(max_pairs_per_tile=256),
     )
     before = B.blend_tiles.launches
+    before_k5 = S.sample_points.launches
     result = pipeline.convert_3dgs_to_pc(ply, tj, masks, settings, device=cuda)
     assert B.blend_tiles.launches == before + 3
+    assert S.sample_points.launches == before_k5 + 1
     cloud = result.cloud
     assert cloud.total == int(cloud.counts.sum()) > 0
     assert np.isfinite(cloud.points).all()
@@ -650,3 +655,66 @@ def test_render_preview_on_card_equals_render_camera(cuda, tmp_path):
         np.testing.assert_array_equal(
             imread_png(str(out / f"{name}_depth.png")),
             to_u8(render_preview.normalised_depth(o.depth[:h, :w].cpu().numpy())))
+
+
+def _k5_case(case: str, device):
+    """(scene, quotas, n_cap, std, block) of a K5 edge case."""
+    g = _scene(300, 8, device)
+    ppg = torch.tensor(np.random.default_rng(9).integers(0, 7, 300), dtype=torch.int32)
+    n_cap, std, block = int(ppg.sum()), 2.0, None
+    if case == "one_slot":
+        ppg = torch.zeros(300, dtype=torch.int32)
+        ppg[17] = 1
+        n_cap = 1
+    elif case == "block_edge_in_a_run":
+        start = int(ppg[:40].sum())
+        ppg[40] = 9
+        n_cap = int(ppg.sum())
+        block = (start + 4, n_cap - 3)
+    elif case == "all_quotas_zero_but_one":
+        ppg = torch.zeros(300, dtype=torch.int32)
+        ppg[299] = 5000
+        n_cap = 5000
+    elif case == "std_1e6":
+        std = 1e6
+    elif case == "counters_above_2_32":
+        # Slots past 2^32 (normals' counters past 2^33): only the block is drawn.
+        ppg = torch.zeros(300, dtype=torch.int32)
+        ppg[3], ppg[150], ppg[151] = 2**31 - 1, 2**31 - 1, 2**31 - 1
+        n_cap = int(ppg.long().sum())
+        lo = (1 << 32) + 5
+        block = (lo - 2000, lo + 3000)
+    return g, ppg.to(device), n_cap, std, block
+
+
+@pytest.mark.parametrize("case", ["one_slot", "block_edge_in_a_run", "all_quotas_zero_but_one",
+                                  "std_1e6", "counters_above_2_32"])
+def test_sampler_kernel_matches_twin(cuda, case):
+    """K5 against its twin on the card, bit for bit: the same owners and the
+    same points, one launch per call."""
+    g, ppg, n_cap, std, block = _k5_case(case, cuda)
+    key = prng.PRNGKey(4)
+    before = S.sample_points.launches
+    k = S.sample_points(key, g, ppg, n_cap, std, block=block)
+    assert S.sample_points.launches == before + 1
+    t = S.sample_points_torch(key, g, ppg, n_cap, std, block=block)
+    torch.cuda.synchronize()
+    lo, hi = block or (0, n_cap)
+    assert k.points.shape == (hi - lo, 3) and bool(torch.isfinite(k.points).all())
+    assert torch.equal(k.gaussian_idx, t.gaussian_idx)
+    assert torch.equal(k.points, t.points)
+
+
+def test_sampler_kernel_blocks_equal_the_whole(cuda):
+    """Blocks of a split concatenate to the whole range (the point-axis
+    split of an SPMD conversion), and an empty block launches nothing."""
+    g, ppg, n_cap, _, _ = _k5_case("std_1e6", cuda)
+    key = prng.PRNGKey(6)
+    whole = S.sample_points(key, g, ppg, n_cap).points
+    for parts in (2, 3, 7):
+        blocks = [S.sample_points(key, g, ppg, n_cap, block=b).points
+                  for b in mesh.split_evenly(n_cap, parts)]
+        assert torch.equal(torch.cat(blocks), whole)
+    before = S.sample_points.launches
+    assert S.sample_points(key, g, ppg, n_cap, block=(n_cap, n_cap)).points.shape == (0, 3)
+    assert S.sample_points.launches == before

@@ -18,6 +18,7 @@ from gs2pc.ops.sampler import mahalanobis as jax_mahalanobis
 from gs2pc.parallel.sweep import render_sweep as jax_render_sweep
 from gs2pc_torch.camera import CameraBatch
 from gs2pc_torch.models.gaussians import Gaussians
+from gs2pc_torch.ops import prng
 from gs2pc_torch.ops import rasterize as R
 from gs2pc_torch.ops.binning import calculate_bin_sizes
 from gs2pc_torch.ops.projection import mark_visible
@@ -91,9 +92,7 @@ def test_generate_pointcloud_matches_jax(exact):
     n_points = 5000
     j = jax_generate(jax.random.PRNGKey(0), jscene, n_points, contributions=jnp.asarray(contrib),
                      exact_num_points=exact)
-    gen = torch.Generator()
-    gen.manual_seed(0)
-    t = generate_pointcloud(gen, tscene, n_points, contributions=torch.tensor(contrib),
+    t = generate_pointcloud(prng.PRNGKey(0), tscene, n_points, contributions=torch.tensor(contrib),
                             exact_num_points=exact)
     valid = np.asarray(j.valid)
     assert t.points.shape[0] == int(j.total) == int(valid.sum())
@@ -102,7 +101,11 @@ def test_generate_pointcloud_matches_jax(exact):
     np.testing.assert_array_equal(
         np.bincount(t.gaussian_idx.numpy(), minlength=256),
         np.bincount(np.asarray(j.gaussian_idx)[valid], minlength=256))
-    # Other random numbers: every point lies in its Gaussian's ball.
+    # The same key draws JAX's numbers: the same owners, positions within
+    # float32 erf / exp / log1p rounding.
+    np.testing.assert_array_equal(t.gaussian_idx.numpy(), np.asarray(j.gaussian_idx)[valid])
+    np.testing.assert_allclose(t.points.numpy(), np.asarray(j.points)[valid], atol=1e-5)
+    # Every point lies in its Gaussian's ball.
     gid = t.gaussian_idx
     d = (t.points - tscene.xyz[gid]).double()
     z = torch.einsum("nji,nj->ni", tscene.rotation_matrices()[gid].double(), d)

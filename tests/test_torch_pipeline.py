@@ -38,6 +38,8 @@ RTOL_ACC = 3e-5
 TOL_CONTRIB = 1e-6
 TOL_COLOUR = 1e-5
 TOL_SURF = 1e-5
+# Sampled positions, the same draws (tests/test_torch_sampler.py's TOL_POS).
+TOL_POINTS = 1e-5
 
 SETTINGS = GaussPointCloudSettings(
     num_points=20_000,
@@ -129,8 +131,11 @@ def test_conversion_matches_jax(conversions, capture):
     np.testing.assert_array_equal(np.asarray(jpc._cols_u8), cloud.cols_u8)
     assert cloud.total == jpc.total == int(cloud.counts.sum())
     assert result.sweep_diag == list(jax_pipeline.LAST_SWEEP_DIAG)
-    # Positions use other random numbers: each must lie in its Gaussian's
-    # Mahalanobis ball of radius mahalanobis_distance_std.
+    # The same seed draws JAX's numbers (gs2pc_torch.ops.prng): positions
+    # within float32 erf / exp / log1p rounding of JAX's.
+    np.testing.assert_allclose(cloud.points, np.asarray(jpc.points), rtol=0, atol=TOL_POINTS)
+    # Each lies in its Gaussian's Mahalanobis ball of radius
+    # mahalanobis_distance_std.
     g = load_gaussians(capture["ply"], device="cpu").validate_covariances()
     gid = torch.tensor(cloud.gauss_ids())
     R = g.rotation_matrices()[gid].double()

@@ -2,10 +2,12 @@
 camera, depth-slab and 2-D sweeps at world sizes 2 and 4 on
 tests/test_torch_shard.py's scenes, bit-equal to their one-thread walks and
 held to the JAX package's shard_map sweeps on its virtual CPU mesh; SPMD
-conversions whose PLY bytes equal the walk's; and a rank that raises.
+conversions, their samplings split over the ranks, whose PLY bytes equal
+the walk's (which samples on one device) at world sizes 2, 3 and 4; a rank
+that raises, and a rank 0 that raises before the sampling.
 
-Each world size is one spawn of ranks that runs every case in turn
-(launch.in_turn); the failing rank is the third spawn."""
+World sizes 2 and 4 are one spawn each that runs every case in turn
+(launch.in_turn); world size 3 and the two failures are a spawn each."""
 
 import functools
 import multiprocessing
@@ -150,8 +152,9 @@ def test_spmd_sweep_matches_jax(spmd):
 
 
 def test_spmd_conversion_writes_the_walks_ply(spmd, capture, tmp_path):
-    """The conversion with its sweep over the ranks (rank 0 parses, the
-    scene and SH broadcast, rank 0 decides every --auto_capacity re-sweep)
+    """The conversion with its sweep and samplings over the ranks (rank 0
+    parses, the scene and SH broadcast, rank 0 decides every
+    --auto_capacity re-sweep, every rank samples a block of the slots)
     writes the PLY bytes the walk writes, and the same counters."""
     settings = spmd["settings"]
     walk = pipeline._convert_walked(capture["ply"], capture["transforms"], capture["masks"],
@@ -163,18 +166,15 @@ def test_spmd_conversion_writes_the_walks_ply(spmd, capture, tmp_path):
         clouds.append((res.surface_cloud, walk.surface_cloud))
         assert res.sweep_diag[3] > 0  # the run cap did saturate
     for i, (a, b) in enumerate(clouds):
-        pa, pb = str(tmp_path / f"spmd{i}.ply"), str(tmp_path / f"walk{i}.ply")
-        save_point_cloud_ply(a, pa)
-        save_point_cloud_ply(b, pb)
-        with open(pa, "rb") as fa, open(pb, "rb") as fb:
-            got, want = fa.read(), fb.read()
-        assert len(want) > 1000 and got == want
+        _assert_same_ply(a, b, str(tmp_path / f"spmd{i}.ply"), str(tmp_path / f"walk{i}.ply"))
 
 
 def test_spawned_ranks_report_their_launches(spmd):
-    """Every spawned rank reports its K1 and K2 launches to rank 0
+    """Every spawned rank reports its K1, K2 and K5 launches to rank 0
     (launch.RANK_LAUNCHES): none here, where the wrappers run their twins
     on the CPU tensors."""
+    assert set(launch.kernel_launches()) == {"blend_tiles", "duplicate_with_keys",
+                                             "sample_points"}
     want = {name: 0 for name in launch.kernel_launches()}
     assert spmd["spawned"] == {r: want for r in range(1, spmd["world"])}
 
@@ -191,6 +191,48 @@ def test_sweep_devices_put_the_callers_card_first(monkeypatch):
     assert pipeline.sweep_devices(cuda[1], 1) == [cuda[1]]
     with pytest.raises(ValueError):
         pipeline.sweep_devices(cuda[1], 5)
+
+
+def _assert_same_ply(a, b, path_a: str, path_b: str) -> None:
+    save_point_cloud_ply(a, path_a)
+    save_point_cloud_ply(b, path_b)
+    with open(path_a, "rb") as fa, open(path_b, "rb") as fb:
+        got, want = fa.read(), fb.read()
+    assert len(want) > 1000 and got == want
+
+
+def test_spmd_conversion_at_world_three_equals_one_device(capture, tmp_path):
+    """Three ranks split both samplings (the cloud and --generate_mesh's
+    surface cloud, --exact_num_points so the cut at max_points too) into
+    blocks one slot apart in size; rank 0's gathered
+    clouds write the PLY bytes of the walk, which samples on one device."""
+    settings = GaussPointCloudSettings(num_points=20_000, colour_resolution=None, quiet=True,
+                                       surface_distance_std=1.0, generate_mesh=True,
+                                       exact_num_points=True)
+    res = launch.run(pipeline.convert_rank, [CPU] * 3, capture["ply"], capture["transforms"],
+                     capture["masks"], settings, timeout=SPAWN_TIMEOUT_S)
+    walk = pipeline._convert_walked(capture["ply"], capture["transforms"], capture["masks"],
+                                    settings, device="cpu", num_devices=3)
+    assert res.surface_quota == walk.surface_quota and res.surface_quota[1] > 0
+    assert res.cloud.total == 20_000 and res.surface_cloud.total % 3 != 0
+    _assert_same_ply(res.cloud, walk.cloud, str(tmp_path / "a.ply"), str(tmp_path / "b.ply"))
+    _assert_same_ply(res.surface_cloud, walk.surface_cloud, str(tmp_path / "c.ply"),
+                     str(tmp_path / "d.ply"))
+
+
+def test_rank_zero_failing_before_the_sampling_fails_the_run(capture):
+    """Rank 0 raises between the sweep and the sampling (every Gaussian
+    culled) while rank 1 waits for its sampling: the run raises rank 0's
+    error well within the group's timeout, and no rank is left running."""
+    settings = GaussPointCloudSettings(num_points=5000, colour_resolution=None, quiet=True,
+                                       min_opacity=2.0)
+    t0 = time.perf_counter()
+    with pytest.raises(ValueError, match="every Gaussian was culled"):
+        launch.run(pipeline.convert_rank, [CPU] * 2, capture["ply"], capture["transforms"],
+                   capture["masks"], settings, timeout=SPAWN_TIMEOUT_S)
+    assert time.perf_counter() - t0 < SPAWN_TIMEOUT_S / 2
+    assert multiprocessing.active_children() == []
+    assert not torch.distributed.is_initialized()
 
 
 def test_a_failed_rank_fails_the_run():
