@@ -36,7 +36,10 @@ Phases (each prints one line or more; any failure exits non-zero):
                PRNGKey(0)): owners and points equal to its twin on the card
                bit for bit, the 2- and 4-block splits on one card equal to
                the whole range, timed launch alone and through the wrapper
-               beside the twin and the bound
+               beside the twin and the bound (recounted from the call's
+               quotas, the count with every slot drawing beside it); the
+               slots that draw (not centres), K5's grid, registers and
+               spills
   8. slab      K1's three depth-slab passes of slab 1 of 4 on camera 0 of
                that scene (the real prefix and the real combined depth map),
                held against the twin and timed
@@ -173,19 +176,24 @@ TPX = 256
 # max), one erf_inv less its libm calls (square, negate, compare, shift, 8
 # Horner steps, the product, the edge test), the chi_3 CDF less its libm
 # calls (6 multiplies and subtracts), a bisection round less its CDF (add,
-# halve, compare, select), an owner-search probe (halve, load, compare,
-# select), and what remains (radius, norm, ratio, centre, scale, rotation:
-# 2 cross products, the quaternion sum, the mean).  The libm calls are
-# counted by their instructions on this card: expf 8, erff 14, log1pf 16,
-# sqrtf 6, an IEEE division 8.  Integer operations are counted against the
-# fp32 rate: the bound stays a least time.
+# halve, compare, select; a level of the threshold table is the same with
+# the CDF read, not computed), an owner-search probe (halve, load, compare,
+# select), and what remains: for every slot the scale, rotation (2 cross
+# products, the quaternion sum) and mean (K5_STORE_OPS), for a slot that
+# draws also the radius, norm, ratio and direction (K5_DIRECTION_OPS;
+# K5_REST_OPS is both).  The libm calls are counted by their
+# instructions on this card: expf 8, erff 14, log1pf 16, sqrtf 6, an IEEE
+# division 8.  Integer operations are counted against the fp32 rate: the
+# bound stays a least time.
 K5_THREEFRY_OPS = 77
 K5_FLOAT_OPS = 6
 K5_ERFINV_OPS = 24
 K5_CDF_OPS = 6
 K5_BISECT_OPS = 4
 K5_SEARCH_OPS = 4
-K5_REST_OPS = 60
+K5_STORE_OPS = 48
+K5_DIRECTION_OPS = 12
+K5_REST_OPS = K5_STORE_OPS + K5_DIRECTION_OPS
 K5_LIBM_OPS = {"expf": 8, "erff": 14, "log1pf": 16, "sqrtf": 6, "div": 8}
 K5_BISECT_ROUNDS = 26
 # The e2e cell's point_sampling before K5 (PERF.md §5; NVIDIA H100
@@ -698,16 +706,14 @@ def phase_timing(device, arrays):
     return ms, bounds, k1_err
 
 
-def k5_bound(n_gaussians: int, n_points: int):
-    """(bound_ms, bound_by) of one K5 call over ``n_points`` slots of
-    ``n_gaussians``, from this call's sizes.  Bytes, each read or written
-    once: the int64 quota prefix and xyz, log_scales, rots (48 B a
-    Gaussian); each point's xyz and int64 gid (20 B).  Operations a point
-    (the K5_* constants): four threefry blocks and floats from their bits,
-    three erf_inv with their log1pf and sqrtf, the CDF at the bound and the
-    26 bisection rounds with their erff and expf, the owner search
-    (ceil(log2(P + 1)) probes), three expf of the scales, a sqrtf and a
-    division, and the rest.  Every slot runs all of them, centres too."""
+def k5_bound_all_draw(n_gaussians: int, n_points: int):
+    """(bound_ms, bound_by) of one K5 call counted as if every slot drew:
+    every slot, centres too, runs four threefry blocks and floats from
+    their bits, three erf_inv with their log1pf and sqrtf, the CDF at the
+    bound and the 26 bisection rounds with their erff and expf, an owner
+    search of the whole prefix (ceil(log2(P + 1)) probes), three expf of
+    the scales, a sqrtf and a division, and the rest.  Bytes as
+    k5_bound."""
     import math
 
     libm = K5_LIBM_OPS
@@ -717,10 +723,60 @@ def k5_bound(n_gaussians: int, n_points: int):
                  + cdf + K5_BISECT_ROUNDS * (K5_BISECT_OPS + cdf)
                  + K5_SEARCH_OPS * math.ceil(math.log2(n_gaussians + 1))
                  + 3 * libm["expf"] + libm["sqrtf"] + libm["div"] + K5_REST_OPS)
-    n_bytes = 48 * n_gaussians + 20 * n_points
+    return _bound(48 * n_gaussians + 20 * n_points, per_point * n_points)
+
+
+def k5_bound(n_gaussians: int, n_points: int, drawn: int, owners: int, layout: dict):
+    """(bound_ms, bound_by) of one K5 call over ``n_points`` slots of
+    ``n_gaussians``, counted from this call's quotas: ``drawn`` slots are
+    not their Gaussian's centre, ``owners`` Gaussians own a slot, and
+    ``layout`` is the kernel's (gs2pc_sample_points_layout: CTAs, table
+    levels L, tile).  Bytes, each read or written once: the int64 quota
+    prefix and xyz, log_scales, rots (48 B a Gaussian); each point's xyz and
+    int64 gid (20 B).  Operations (the K5_* constants): every slot its owner
+    (a search of its tile's window, log2(tile) probes) and its scale,
+    rotation and mean; a drawn slot four threefry blocks and floats from
+    their bits, three erf_inv with their log1pf and sqrtf, L table levels
+    (a compare and a midpoint each) and 26 - L bisection rounds with their
+    erff and expf, a sqrtf, a division and its direction; an owner three
+    expf of its scales; a CTA its table (2^L - 1 CDFs and midpoints) and
+    the CDF at the bound.  A centre draws nothing, and the table's CDFs are
+    counted once a CTA, not once a point (k5_bound_all_draw counts both for every
+    slot)."""
+    import math
+
+    libm = K5_LIBM_OPS
+    cdf = K5_CDF_OPS + libm["erff"] + libm["expf"]
+    levels = layout["table_levels"]
+    every_slot = K5_SEARCH_OPS * math.ceil(math.log2(layout["tile"])) + K5_STORE_OPS
+    per_drawn = (4 * (K5_THREEFRY_OPS + K5_FLOAT_OPS)
+                 + 3 * (K5_ERFINV_OPS + libm["log1pf"] + libm["sqrtf"])
+                 + levels * K5_BISECT_OPS + (K5_BISECT_ROUNDS - levels) * (K5_BISECT_OPS + cdf)
+                 + libm["sqrtf"] + libm["div"] + K5_DIRECTION_OPS)
+    per_cta = ((1 << levels) - 1) * (cdf + K5_BISECT_OPS) + cdf
+    ops = (every_slot * n_points + per_drawn * drawn + 3 * libm["expf"] * owners
+           + per_cta * layout["ctas"])
+    return _bound(48 * n_gaussians + 20 * n_points, ops)
+
+
+def _bound(n_bytes: int, n_ops: int):
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = per_point * n_points / FP32_FLOPS_PER_S
+    t_ops = n_ops / FP32_FLOPS_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def k5_layout(n_points: int) -> dict:
+    """K5's grid for a call over ``n_points`` slots on the current card, its
+    table levels and tile (the kernel's own constants)."""
+    import ctypes
+
+    from gs2pc_torch.ops import cuda_build
+
+    got = [ctypes.c_int(0) for _ in range(3)]
+    rc = cuda_build.load_library().gs2pc_sample_points_layout(
+        n_points, *(ctypes.addressof(v) for v in got))
+    cuda_build.check(rc, "gs2pc_sample_points_layout")
+    return dict(zip(("ctas", "table_levels", "tile"), (v.value for v in got)))
 
 
 def phase_k5(device, arrays):
@@ -728,19 +784,24 @@ def phase_k5(device, arrays):
     clamp applied) and 10M points of quotas by size, key PRNGKey(0); held
     to its twin run on the card and the blocks of a 2- and 4-way split on
     one card to the whole range, bit for bit; then timed, launch alone and
-    through the wrapper, beside the twin and the bound."""
+    through the wrapper, beside the twin and the bound (recounted from the
+    quotas, the all-draw count beside it)."""
     import torch
 
-    from gs2pc_torch.ops import prng
+    from gs2pc_torch.ops import cuda_build, prng
     from gs2pc_torch.ops import sampler as S
     from gs2pc_torch.parallel.mesh import split_evenly
-    from gs2pc_torch.tools.bench_kernels import launch_ms
+    from gs2pc_torch.tools.bench_kernels import kernel_ptxas, launch_ms
 
     g = scene_on_device(arrays, device).validate_covariances()
     ppg = S.distribute_points(g.magnitudes(), N_POINTS)
     n_cap = N_POINTS + max(4096, N_POINTS // 20)
     key = prng.PRNGKey(0)
-    n = S.slot_count(ppg, n_cap)
+    prefix, n = S.slot_prefix(ppg, n_cap)
+    # Each Gaussian with a quota whose run starts below n owns slots and
+    # has its centre among them; every other slot draws.
+    owners = int(((prefix - ppg < n) & (ppg > 0)).sum())
+    drawn = n - owners
     label = f"{g.num_gaussians} Gaussians, {n} points"
 
     k = S.sample_points(key, g, ppg, n_cap)
@@ -760,25 +821,31 @@ def phase_k5(device, arrays):
         if not torch.equal(torch.cat(blocks), k.points):
             fail(f"K5, {label}: the {parts} blocks differ from the whole range")
         del blocks
-    centres = int((ppg > 0).sum())
-    print(f"K5 vs twin, {label} ({centres} centres): owners equal, {differ} points differ, "
-          f"max |err| {err}; the 2- and 4-block splits equal the whole range bit for bit",
-          flush=True)
+    print(f"K5 vs twin, {label} ({owners} centres, {drawn} slots that draw): owners equal, "
+          f"{differ} points differ, max |err| {err}; the 2- and 4-block splits equal the whole "
+          f"range bit for bit", flush=True)
     del k, t
 
     def k5():
         return S.sample_points(key, g, ppg, n_cap)
 
+    layout = k5_layout(n)
     ms = dict(
         launch_ms=launch_ms(k5, ["gs2pc_sample_points"], 10)["gs2pc_sample_points"],
         wrapper_ms=cuda_ms(k5, 5),
         plain_ms=cuda_ms(lambda: S.sample_points_torch(key, g, ppg, n_cap), 1),
-        bound=k5_bound(g.num_gaussians, n), max_abs_err=err,
+        bound=k5_bound(g.num_gaussians, n, drawn, owners, layout),
+        bound_all_draw=k5_bound_all_draw(g.num_gaussians, n), max_abs_err=err, layout=layout,
+        ptxas=kernel_ptxas(cuda_build.BUILD_INFO.get("log", ""), "sample_points_kernel")
+        or "the library was built before this run",
     )
     print(f"timing, K5, {label}: launch alone {ms['launch_ms']:.4f} ms, through the wrapper "
           f"{ms['wrapper_ms']:.4f} ms, twin {ms['plain_ms']:.3f} ms, bound "
           f"{ms['bound'][0]:.4f} ms ({ms['bound'][1]}), "
-          f"{ms['bound'][0] / ms['launch_ms']:.1%} of the bound", flush=True)
+          f"{ms['bound'][0] / ms['launch_ms']:.1%} of the bound (counted as if every slot drew "
+          f"{ms['bound_all_draw'][0]:.4f} ms, {ms['bound_all_draw'][0] / ms['launch_ms']:.1%}); "
+          f"{layout['ctas']} CTAs of tiles of {layout['tile']} slots, {layout['table_levels']} "
+          f"table levels; ptxas: {ms['ptxas']}", flush=True)
     return ms
 
 

@@ -63,6 +63,7 @@ _SIGNATURES = {
         [_P, _I, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_uint32,
          ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, _P, _P, _P],
     ),
+    "gs2pc_sample_points_layout": (_I, [ctypes.c_longlong, _P, _P, _P]),
 }
 
 

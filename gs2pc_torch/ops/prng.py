@@ -50,7 +50,7 @@ def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
 def threefry2x32(key, x0: torch.Tensor, x1: torch.Tensor) -> tuple:
     """The threefry2x32 block cipher (20 rounds) of the counter words
     (x0, x1) under ``key`` (two uint32 words), elementwise; int64 tensors
-    holding uint32 values in and out."""
+    holding uint32 values in and out, or Python integers."""
     k0, k1 = (int(k) & MASK32 for k in key)
     ks = (k0, k1, k0 ^ k1 ^ _KS_PARITY)
     x0 = (x0 + ks[0]) & MASK32
@@ -68,6 +68,13 @@ def split(key) -> torch.Tensor:
     """``jax.random.split(key)``: the (2, 2) keys at counters 0 and 1."""
     x0, x1 = threefry2x32(key, torch.zeros(2, dtype=torch.int64), torch.arange(2))
     return torch.stack([x0, x1], dim=1)
+
+
+def split_words(key) -> tuple:
+    """``split(key)`` in Python integers, ((w0, w1), (w0, w1)): no tensor
+    op, so a caller that launches on a card does not wait on the host."""
+    words = key.tolist() if isinstance(key, torch.Tensor) else list(key)
+    return tuple(threefry2x32(words, 0, i) for i in (0, 1))
 
 
 def random_bits(key, lo: int, hi: int, device=None) -> torch.Tensor:

@@ -91,6 +91,46 @@ def chi3_truncated_radius(u: torch.Tensor, std: float, iters: int = 26) -> torch
     return 0.5 * (lo + hi)
 
 
+def chi3_table(std: float, levels: int, device=None) -> torch.Tensor:
+    """K5's threshold table: chi3_cdf(mid) at every node n in [1, 2^levels)
+    of the bisection tree of chi3_truncated_radius (entry 0 unused).  Node
+    n's decisions are its bits below the leading one, 1 = "below" (lo =
+    mid), taken from [0, min(std, 16)] with the bisection's own float
+    operations."""
+    hi0 = min(float(torch.tensor(std, dtype=torch.float32)), 16.0)
+    lo = torch.zeros(1 << levels, dtype=torch.float32, device=device)
+    hi = torch.full_like(lo, hi0)
+    for d in range(1, levels):
+        node = torch.arange(1 << d, 2 << d, device=device)
+        parent, below = node >> 1, (node & 1).bool()
+        mid = 0.5 * (lo[parent] + hi[parent])
+        lo[node] = torch.where(below, mid, lo[parent])
+        hi[node] = torch.where(below, hi[parent], mid)
+    return _chi3_cdf(0.5 * (lo + hi))
+
+
+def chi3_radius_by_table(u: torch.Tensor, std: float, levels: int,
+                         iters: int = 26) -> torch.Tensor:
+    """chi3_truncated_radius as K5 takes it, bit for bit: the first
+    ``levels`` rounds compare t with chi3_table's entry at the node the
+    decisions so far reach (lo / hi still updated round by round), the rest
+    evaluate the CDF.  The tests hold it to chi3_truncated_radius; the
+    sampler does not call it."""
+    table = chi3_table(std, levels, u.device)
+    std_t = torch.tensor(std, dtype=torch.float32, device=u.device)
+    t = u * _chi3_cdf(std_t)
+    lo = torch.zeros_like(u)
+    hi = torch.full_like(u, min(float(std_t), 16.0))
+    node = torch.ones(u.shape, dtype=torch.int64, device=u.device)
+    for it in range(iters):
+        mid = 0.5 * (lo + hi)
+        below = (table[node] if it < levels else _chi3_cdf(mid)) < t
+        lo = torch.where(below, mid, lo)
+        hi = torch.where(below, hi, mid)
+        node = 2 * node + below.long()
+    return 0.5 * (lo + hi)
+
+
 class SampledPoints(NamedTuple):
     points: torch.Tensor  # (m, 3) float32: slots [lo, hi) of the n = min(quota sum, n_cap)
     gaussian_idx: torch.Tensor  # (m,) int64 source Gaussian
@@ -104,14 +144,17 @@ class SamplerScene(NamedTuple):
     rots: torch.Tensor  # (P, 4) float32, wxyz
 
 
-def slot_count(points_per_gaussian: torch.Tensor, n_cap: int,
-               max_points: Optional[int] = None) -> int:
-    """n, the slots sampled: the quota sum, cut at ``max_points`` and
-    ``n_cap`` (quotas beyond are dropped at the end of the slot order)."""
-    total = int(points_per_gaussian.to(torch.int64).sum())
+def slot_prefix(points_per_gaussian: torch.Tensor, n_cap: int,
+                max_points: Optional[int] = None) -> tuple:
+    """(prefix, n): the inclusive int64 prefix sum of the quotas, on their
+    device, and n, the slots sampled: the quota sum cut at ``max_points``
+    and ``n_cap`` (quotas beyond are dropped at the end of the slot order).
+    Reading the sum is the one host sync."""
+    prefix = torch.cumsum(points_per_gaussian, 0, dtype=torch.int64)
+    total = int(prefix[-1]) if prefix.numel() else 0
     if max_points is not None:
         total = min(total, int(max_points))
-    return min(total, n_cap)
+    return prefix, min(total, n_cap)
 
 
 def _block(block: Optional[tuple], n: int) -> tuple:
@@ -130,7 +173,7 @@ def sample_points(
     draws: Optional[tuple] = None,
     block: Optional[tuple] = None,
 ) -> SampledPoints:
-    """Slots ``block`` = [lo, hi) (default: all n, see slot_count) of the
+    """Slots ``block`` = [lo, hi) (default: all n, see slot_prefix) of the
     cloud, with JAX's draws under ``key`` (gs2pc_torch.ops.prng; JAX's
     sample_points(key, ...) with the same key draws the same numbers).
 
@@ -155,14 +198,14 @@ def sample_points(
     for name, t, w in (("xyz", xyz, 3), ("log_scales", log_scales, 3), ("rots", rots, 4)):
         if t.dtype != torch.float32 or t.shape != (P, w) or t.device != dev:
             raise ValueError(f"sample_points: {name} must be a ({P}, {w}) float32 tensor on {dev}")
-    prefix = torch.cumsum(points_per_gaussian.to(torch.int64), 0)
-    n = slot_count(points_per_gaussian, n_cap, max_points)
+    # The key words and the library first: host work done before the sync.
+    (kz0, kz1), (ku0, ku1) = prng.split_words(key)
+    lib = load_library()
+    prefix, n = slot_prefix(points_per_gaussian, n_cap, max_points)
     lo, hi = _block(block, n)
     points = torch.empty((hi - lo, 3), dtype=torch.float32, device=dev)
     gid = torch.empty(hi - lo, dtype=torch.int64, device=dev)
     if hi > lo:
-        (kz0, kz1), (ku0, ku1) = prng.split(key).tolist()
-        lib = load_library()
         rc = launch(
             lib.gs2pc_sample_points, prefix, prefix.data_ptr(), P, xyz.data_ptr(),
             log_scales.data_ptr(), rots.data_ptr(), lo, hi - lo, kz0, kz1, ku0, ku1,
@@ -193,8 +236,8 @@ def sample_points_torch(
     in K5's order of float operations."""
     ppg = points_per_gaussian.to(torch.int64)
     dev = ppg.device
-    prefix = torch.cumsum(ppg, 0)
-    lo, hi = _block(block, slot_count(ppg, n_cap, max_points))
+    prefix, n = slot_prefix(ppg, n_cap, max_points)
+    lo, hi = _block(block, n)
     slots = torch.arange(lo, hi, device=dev)
     gid = torch.searchsorted(prefix, slots, right=True)
     is_centre = slots == prefix[gid] - ppg[gid]

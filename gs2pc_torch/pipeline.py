@@ -38,7 +38,7 @@ from gs2pc_torch.ops.sampler import (
     SamplerScene,
     distribute_points,
     sample_points,
-    slot_count,
+    slot_prefix,
 )
 from gs2pc_torch.parallel import launch, mesh
 from gs2pc_torch.parallel.gauss_shard import (
@@ -173,7 +173,8 @@ def sample_on_axis(axis, job: SamplingJob, root=None) -> Optional[torch.Tensor]:
     with log.phase("sample_broadcast"):
         ppg, xyz, log_scales, rots = axis.broadcast_tensors(root)
     with log.phase("sample_block"):
-        blocks = mesh.split_evenly(slot_count(ppg, job.n_cap, job.max_points), axis.size)
+        _, n = slot_prefix(ppg, job.n_cap, job.max_points)
+        blocks = mesh.split_evenly(n, axis.size)
         part = sample_points(
             torch.tensor(job.key), SamplerScene(xyz, log_scales, rots), ppg, job.n_cap,
             job.std, job.max_points, block=blocks[axis.rank],
@@ -223,14 +224,10 @@ def generate_point_cloud(
         axis.broadcast_object(job)
         points = sample_on_axis(axis, job, (ppg, gaussians.xyz, gaussians.log_scales,
                                             gaussians.rots))
-    total = points.shape[0]
-    counts = ppg.cpu().numpy().astype(np.int64)
-    cum = np.cumsum(counts)
-    over = cum > total
-    if over.any():  # quotas cut at n_cap / max_points: trim the tail runs
-        first = int(np.argmax(over))
-        counts[first] -= int(cum[first] - total)
-        counts[first + 1:] = 0
+    # Points per Gaussian: the quotas, the tail runs trimmed where n_cap /
+    # max_points cut them.
+    prefix, n = slot_prefix(ppg, job.n_cap, job.max_points)
+    counts = np.diff(np.minimum(prefix.cpu().numpy(), n), prepend=0)
     cols_u8 = torch.clamp(gaussians.colours, 0.0, 255.0).to(torch.uint8)
     return PointCloud(
         points=points.cpu().numpy(),

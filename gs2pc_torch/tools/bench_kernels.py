@@ -1,9 +1,11 @@
 """Times K1 (every mode) and K2 at the main path's shape: camera 0 of the
 capture scene (3M Gaussians, 1280x720, its vignette mask, surface pass,
 compact tables, run cap 4096) and, for K1's depth-slab modes, slab 1 of 4
-of the same camera, with the inputs the depth-slab sweep gives it; and the
-probes at the tools' shapes: K3 per op on the seeded uniform block of
-cuda_probe, K4 at level 6 on the seeded input of cuda_probe2.
+of the same camera, with the inputs the depth-slab sweep gives it; K5 on
+that scene (the PSD clamp applied) at 10M points of quotas by size, key
+PRNGKey(0); and the probes at the tools' shapes: K3 per op on the seeded
+uniform block of cuda_probe, K4 at level 6 on the seeded input of
+cuda_probe2.
 
 Each kernel is timed two ways with CUDA events, the mean over ``--reps``
 after a warm-up (ten times as many for the probes): through its wrapper
@@ -15,10 +17,11 @@ probes: their kernels' own device time (torch.profiler), the floor (an
 empty kernel's entry point replayed the same way, before and after them),
 and the PyTorch calls that compute K3's roll and scan (torch.roll,
 torch.cumprod), which the port never calls.  ``--gaussians 0`` times the
-probes alone.
+probes alone; ``--kernels`` picks which of probes, k1, k2 and k5 run.
 
     python gs2pc_torch/tools/bench_kernels.py [--root DIR] [--e2e N [--profile]
-        [--num_devices N] [--e2e_only]] [--gaussians 3000000] [--reps 20] [--out FILE]
+        [--num_devices N] [--e2e_only]] [--gaussians 3000000] [--kernels k5]
+        [--reps 20] [--out FILE]
 
 ``--root`` imports ``gs2pc_torch`` from another checkout (the tool runs as
 a file, so the same script times an older tree beside this one: run them
@@ -49,6 +52,9 @@ K2_ENTRIES = ("gs2pc_count_pairs", "gs2pc_write_pairs")
 K3_ENTRY = "gs2pc_probe_op"
 K4_ENTRY = "gs2pc_probe_blend"
 FLOOR_ENTRY = "gs2pc_probe_floor"
+K5_ENTRY = "gs2pc_sample_points"
+N_POINTS = 10_000_000
+KERNELS = ("probes", "k1", "k2", "k5")
 # K3's ops that one PyTorch call computes (x is the (256, 128) block).
 K3_LIBRARY = {"roll": lambda x: x.roll(4, 1), "scan": lambda x: x.cumprod(1)}
 
@@ -181,6 +187,27 @@ def time_k2(prep, cfg, reps: int) -> dict:
     count, write = (launch[n] for n in K2_ENTRIES)
     return {"count_ms": count, "write_ms": write, "scan_sync_ms": wrapper - count - write,
             "wrapper_ms": wrapper, "pairs": int(call()[0].numel())}
+
+
+def time_k5(n_gaussians: int, device, reps: int) -> dict:
+    """K5 at the e2e cell's width: the capture scene with the PSD clamp
+    applied, N_POINTS points of quotas by size, key PRNGKey(0)."""
+    from gs2pc_torch.models.gaussians import Gaussians
+    from gs2pc_torch.ops import prng
+    from gs2pc_torch.ops import sampler as S
+    from gs2pc_torch.utils import capture
+
+    a = capture.make_scene_arrays(n_gaussians)
+    g = Gaussians.from_numpy(a.xyz, a.log_scales, a.rots, a.colours, a.opacities,
+                             device=device).validate_covariances()
+    ppg = S.distribute_points(g.magnitudes(), N_POINTS)
+    n_cap = N_POINTS + max(4096, N_POINTS // 20)
+
+    def call():
+        return S.sample_points(prng.PRNGKey(0), g, ppg, n_cap)
+
+    return {"launch_ms": launch_ms(call, [K5_ENTRY], reps)[K5_ENTRY],
+            "wrapper_ms": cuda_ms(call, reps), "points": int(call().points.shape[0])}
 
 
 def _device_us(e) -> float:
@@ -334,6 +361,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--device", default="cuda:0")
     ap.add_argument("--gaussians", type=int, default=3_000_000,
                     help="the capture scene's size; 0 times the probes alone")
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help=f"comma-separated, of {', '.join(KERNELS)} (default: all)")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--e2e", type=int, default=0,
                     help="also run the 16-camera conversion this many times")
@@ -345,6 +374,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     help="with --e2e, skip the kernel and probe timings")
     ap.add_argument("--out", default=None, help="also write the JSON record here")
     args = ap.parse_args(argv)
+    kernels = set(args.kernels.split(","))
+    if not kernels <= set(KERNELS):
+        ap.error(f"--kernels: unknown {sorted(kernels - set(KERNELS))}")
+    if args.e2e_only:
+        kernels = set()
+    if not args.gaussians:
+        kernels &= {"probes"}
     root = os.path.abspath(args.root or os.path.join(os.path.dirname(__file__), "..", ".."))
     sys.path.insert(0, root)
     import torch
@@ -362,10 +398,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
            "build_s": time.perf_counter() - t0,
            **{f"{k}_ptxas": kernel_ptxas(log, name) for k, name in (
                ("k1", "blend_tiles_kernel"), ("k3", "probe_op_kernel"),
-               ("k4", "probe_blend_kernel"))}}
-    if not args.e2e_only:
+               ("k4", "probe_blend_kernel"), ("k5", "sample_points_kernel"))}}
+    if "probes" in kernels:
         rec["probes"] = time_probes(device, 10 * args.reps)
-    if args.gaussians and not args.e2e_only:
+    if kernels & {"k1", "k2"}:
         prep, cfg, modes = camera_inputs(args.gaussians, device)
         from gs2pc_torch.ops import blend_kernel as B
 
@@ -373,8 +409,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         rec["chunks"] = {"mean": float(chunks.mean()),
                          "p99": float(torch.quantile(chunks, 0.99)),
                          "max": float(chunks.max())}
-        rec["k1"] = time_k1(modes, args.reps)
-        rec["k2"] = time_k2(prep, cfg, args.reps)
+        if "k1" in kernels:
+            rec["k1"] = time_k1(modes, args.reps)
+        if "k2" in kernels:
+            rec["k2"] = time_k2(prep, cfg, args.reps)
+        del prep, modes
+    if "k5" in kernels:
+        rec["k5"] = time_k5(args.gaussians, device, args.reps)
     if args.e2e and args.gaussians:
         extra = [] if args.num_devices is None else ["--num_devices", str(args.num_devices)]
         rec["cards"] = torch.cuda.device_count()

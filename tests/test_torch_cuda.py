@@ -657,10 +657,17 @@ def test_render_preview_on_card_equals_render_camera(cuda, tmp_path):
             to_u8(render_preview.normalised_depth(o.depth[:h, :w].cpu().numpy())))
 
 
+# K5's tile (csrc/sampler.cu, K5_TILE): the new cases place their edges by it.
+K5_TILE = 1024
+# Gaussians of the K5 cases' scene, by case (300 otherwise).
+K5_SCENES = {"block_mid_tile": 6000, "all_centres": 5000, "zero_quota_gaps": 20_000}
+
+
 def _k5_case(case: str, device):
     """(scene, quotas, n_cap, std, block) of a K5 edge case."""
-    g = _scene(300, 8, device)
-    ppg = torch.tensor(np.random.default_rng(9).integers(0, 7, 300), dtype=torch.int32)
+    n_g = K5_SCENES.get(case, 300)
+    g = _scene(n_g, 8, device)
+    ppg = torch.tensor(np.random.default_rng(9).integers(0, 7, n_g), dtype=torch.int32)
     n_cap, std, block = int(ppg.sum()), 2.0, None
     if case == "one_slot":
         ppg = torch.zeros(300, dtype=torch.int32)
@@ -675,8 +682,6 @@ def _k5_case(case: str, device):
         ppg = torch.zeros(300, dtype=torch.int32)
         ppg[299] = 5000
         n_cap = 5000
-    elif case == "std_1e6":
-        std = 1e6
     elif case == "counters_above_2_32":
         # Slots past 2^32 (normals' counters past 2^33): only the block is drawn.
         ppg = torch.zeros(300, dtype=torch.int32)
@@ -684,11 +689,35 @@ def _k5_case(case: str, device):
         n_cap = int(ppg.long().sum())
         lo = (1 << 32) + 5
         block = (lo - 2000, lo + 3000)
+    elif case == "run_across_tiles":
+        # A run of 3M slots: thousands of tiles, several strides of the
+        # persistent grid (about one wave of CTAs).
+        ppg[40] = 3_000_000
+        n_cap = int(ppg.sum())
+    elif case == "block_mid_tile":
+        block = (3 * K5_TILE + 100, 9 * K5_TILE + 555)
+    elif case == "all_centres":
+        ppg = torch.ones(n_g, dtype=torch.int32)
+        n_cap = n_g
+    elif case == "no_centre_block":
+        start = int(ppg[:40].sum())
+        ppg[40] = 100_000
+        n_cap = int(ppg.sum())
+        block = (start + 10, start + 90_000)
+    elif case == "zero_quota_gaps":
+        # One Gaussian in 1500 has a quota: a tile's owners lie further apart
+        # than the prefix window K5 keeps in shared memory.
+        ppg = torch.where(torch.arange(n_g) % 1500 == 7, 3, 0).to(torch.int32)
+        n_cap = int(ppg.sum())
+    elif case.startswith("std_"):
+        std = float(case[4:])
     return g, ppg.to(device), n_cap, std, block
 
 
 @pytest.mark.parametrize("case", ["one_slot", "block_edge_in_a_run", "all_quotas_zero_but_one",
-                                  "std_1e6", "counters_above_2_32"])
+                                  "std_1e6", "counters_above_2_32", "run_across_tiles",
+                                  "block_mid_tile", "all_centres", "no_centre_block",
+                                  "zero_quota_gaps", "std_0.1", "std_15.9", "std_16", "std_17"])
 def test_sampler_kernel_matches_twin(cuda, case):
     """K5 against its twin on the card, bit for bit: the same owners and the
     same points, one launch per call."""
