@@ -21,7 +21,7 @@ Phases (each prints one line or more; any failure exits non-zero):
                under both surface_compact settings, compact on and off
   6. e2e       the capture of gs2pc_torch.utils.capture (3M Gaussians, 16
                cameras at 1280x720, masks) -> 10M points with surface
-               distances on, through the native PLY writer; the CLI at
+               distances on, streamed through the native PLY writer; the CLI at
                its default --num_devices 0, so on a machine with several
                cards this and every later CLI phase sweeps one process per
                card, and the launches checked are those of every rank (K5
@@ -113,6 +113,19 @@ Phases (each prints one line or more; any failure exits non-zero):
                cloud with K5 (2 launches a rank), and both PLYs are
                byte-equal to the walk's on the same devices, which samples
                on one card
+ 24. transfers (run right after 6) the e2e cloud, its points still on the
+               card (pipeline.LazyPointCloud): its PLY written through the
+               stream (pinned chunks, the native session: "native_stream")
+               and through the eager route (pageable fetch of the whole
+               buffer + gs2pc_write_ply_expand), and that writer alone on
+               points on the host, five each in turns, byte-equal; the
+               fetch alone, pageable, pinned and in pinned chunks; phase 6's
+               scene_parse, scene_upload, point_sampling and ply_write beside
+               the eager port's; one more CLI conversion under
+               torch.profiler, its copies by kind and phase: no pageable
+               device-to-host copy of
+               the point buffer, ply_write's copies pinned; the bytes fetched
+               and the planes' bytes uploaded from pinned memory printed
 The line before the last is the kernels' JSON record (max_abs_err at the
 shape of phases 7-8 and 10 (K5: phase 7's); ms the time through the wrapper, also given as
 wrapper_ms, and launch_ms the launch alone, K2's count + write; K3 as the
@@ -199,6 +212,12 @@ K5_BISECT_ROUNDS = 26
 # The e2e cell's point_sampling before K5 (PERF.md §5; NVIDIA H100
 # 80GB HBM3, 700.00 W).
 PARENT_POINT_SAMPLING_S = 0.154
+
+# The e2e phases before the streamed transfers, when the point buffer was
+# fetched pageable within point_sampling (PERF.md §5's earlier archive run;
+# NVIDIA H100 80GB HBM3, 700.00 W; scene_upload was not printed).
+PARENT_TRANSFER_PHASES = {"scene_parse": 0.733, "scene_upload": None, "point_sampling": 0.115,
+                          "ply_write": 0.133}
 
 # K5 vs its twin: the same float operations in the same order, with the
 # libm functions PyTorch's CUDA kernels call (csrc/sampler.cu).
@@ -528,8 +547,11 @@ def check_cloud(result, out: str, label: str) -> int:
         fail(f"{label}: points written {n_file}, cloud {cloud.total}, quota sum {quota_sum}")
     if not np.isfinite(cloud.points).all():
         fail(f"{label}: non-finite point positions")
-    if result.writer != "native_expand":
-        fail(f"{label}: the PLY was written by the {result.writer} writer, not native_expand")
+    # A lazy cloud (its points on the card) streams through the native
+    # session; an eager one (after --clean_pointcloud) is expanded at once.
+    want = "native_stream" if hasattr(cloud, "stream_chunks") else "native_expand"
+    if result.writer != want:
+        fail(f"{label}: the PLY was written by the {result.writer} writer, not {want}")
     return n_file
 
 
@@ -630,7 +652,159 @@ def phase_e2e(device, work):
           f"PERF.md §5); phases {json.dumps(phases)}", flush=True)
 
     os.remove(out)
-    return arrays, launches, dict(ply=ply, tj=tj, masks=mask_dir, cols_u8=result.cloud.cols_u8)
+    return arrays, launches, dict(ply=ply, tj=tj, masks=mask_dir, cols_u8=result.cloud.cols_u8,
+                                  cloud=result.cloud, phases=phases)
+
+
+def phase_transfers(device, work, e2e, smi: str) -> None:
+    """The host transfers on the e2e scene's 10M-point cloud: its PLY
+    written through the stream (pinned chunks, the native session), through
+    the eager route the port took before (a pageable fetch of the whole
+    point buffer, then gs2pc_write_ply_expand) and by that writer alone on
+    points already on the host, five times each in turns, byte-equal;
+    the fetch alone, pageable and pinned; the e2e phases beside the eager
+    port's; and one CLI conversion under torch.profiler, its copies by kind and
+    phase: it fails on any pageable device-to-host copy of the point buffer
+    (the whole buffer's or a chunk's size, or any in ply_write) and when
+    ply_write made no pinned one; the bytes the write fetched and those of
+    the scene's planes uploaded from pinned memory are printed."""
+    import numpy as np
+    import torch
+
+    from gs2pc_torch import cli
+    from gs2pc_torch.io.ply import PointCloud, save_point_cloud_ply
+    from gs2pc_torch.pipeline import LazyPointCloud
+    from gs2pc_torch.tools.bench_kernels import trace_copies, trace_phases
+    from gs2pc_torch.utils import log
+
+    cloud = e2e["cloud"]
+    if not isinstance(cloud, LazyPointCloud) or cloud.device_points.device.type != "cuda":
+        fail("transfers: the e2e conversion's cloud is not a lazy cloud on the card")
+    lazy = os.path.join(work, "stream.ply")
+    eager = os.path.join(work, "eager.ply")
+
+    host_points = cloud.device_points.cpu().numpy()
+
+    def stream():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        writer = save_point_cloud_ply(cloud, lazy, chunk_size=10**6)
+        return time.perf_counter() - t0, writer, "native_stream"
+
+    def eager_route():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pts = cloud.device_points.cpu().numpy()
+        writer = save_point_cloud_ply(PointCloud(pts, cloud.counts, cloud.cols_u8,
+                                                 cloud.gauss_normals), eager, chunk_size=10**6)
+        return time.perf_counter() - t0, writer, "native_expand"
+
+    def write_only():
+        t0 = time.perf_counter()
+        writer = save_point_cloud_ply(PointCloud(host_points, cloud.counts, cloud.cols_u8,
+                                                 cloud.gauss_normals), eager, chunk_size=10**6)
+        return time.perf_counter() - t0, writer, "native_expand"
+
+    # Five of each, the order turned every round (the disk's spread is wide).
+    walls = {"stream": [], "eager_route": [], "write_only": []}
+    for i in range(5):
+        for fn in (stream, eager_route, write_only)[::1 if i % 2 == 0 else -1]:
+            wall, writer, want = fn()
+            walls[fn.__name__].append(round(wall, 4))
+            if writer != want:
+                fail(f"transfers: {fn.__name__} wrote through {writer}, not {want}")
+            if fn is not stream and not files_equal(lazy, eager):
+                fail(f"transfers: the streamed PLY differs from {fn.__name__}'s")
+    del host_points
+    size = os.path.getsize(lazy)
+    os.remove(lazy)
+    os.remove(eager)
+
+    src = cloud.device_points
+    n_bytes = src.numel() * 4
+
+    def fetch_pageable():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        src.cpu()
+        return time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    pinned = torch.empty(src.shape, dtype=torch.float32, pin_memory=True)
+    alloc_s = time.perf_counter() - t0
+
+    def fetch_pinned():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pinned.copy_(src, non_blocking=True)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def fetch_chunks():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in cloud.point_rows(10**6):
+            pass
+        return time.perf_counter() - t0
+
+    fetch = {name: [round(fn() * 1e3, 3) for _ in range(3)]
+             for name, fn in (("pageable", fetch_pageable), ("pinned", fetch_pinned),
+                              ("pinned_chunks", fetch_chunks))}
+    if not np.array_equal(pinned.numpy(), src.cpu().numpy()):
+        fail("transfers: the pinned fetch differs from the pageable one")
+    del pinned
+
+    out = os.path.join(work, "profiled.ply")
+    argv = e2e_argv(e2e["ply"], e2e["tj"], e2e["masks"], out) + ["--surface_distance_std", "1e6"]
+    trace = os.path.join(work, "transfers_trace.json")
+    log.reset_phases()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        res = cli.main(argv)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(trace)
+    check_cloud(res, out, "transfers (profiled CLI)")
+    os.remove(out)
+    copies = trace_copies(trace, list(log.PHASE_SECONDS))
+    breakdown = trace_phases(trace)
+    os.remove(trace)
+    if not copies:
+        fail("transfers: the profiler recorded no device copies")
+    total = res.cloud.total
+    kinds = {}
+    for kind, b, ms, phase in copies:
+        k = kinds.setdefault(kind, {"count": 0, "bytes": 0, "ms": 0.0, "by_phase": {}})
+        k["count"] += 1
+        k["bytes"] += b
+        k["ms"] = round(k["ms"] + ms, 3)
+        k["by_phase"][str(phase)] = k["by_phase"].get(str(phase), 0) + b
+    mine = {k: round(e2e["phases"].get(k, 0.0), 3) for k in PARENT_TRANSFER_PHASES}
+    # Reported, not gated: one profiled run (of several) lacked one plane's
+    # record, though the copies are the same every run.
+    write_d2h = sum(b for kind, b, _, phase in copies if "DtoH" in kind and phase == "ply_write")
+    h2d_pinned = sum(b for kind, b, _, phase in copies
+                     if kind.endswith("(Pinned -> Device)") and phase == "scene_parse")
+    print(f"transfers ({smi}): {total} points, {size} bytes; PLY walls [s] streamed "
+          f"{walls['stream']}, eager route (pageable fetch + native_expand) "
+          f"{walls['eager_route']}, native_expand of points already on the host "
+          f"{walls['write_only']}, all byte-equal; fetch of the {n_bytes}-byte point buffer "
+          f"alone [ms] "
+          f"{json.dumps(fetch)} (the pinned buffer's allocation {alloc_s * 1e3:.3f} ms); e2e "
+          f"phases {json.dumps(mine)} against the eager port's "
+          f"{json.dumps(PARENT_TRANSFER_PHASES)} "
+          f"(PERF.md §5); profiled CLI copies by kind and phase {json.dumps(kinds)}: ply_write "
+          f"{write_d2h} bytes to the host of the {12 * total}-byte buffer, the scene's planes "
+          f"{h2d_pinned} bytes from pinned memory during the parse of their "
+          f"{14 * 4 * N_E2E_GAUSSIANS}; its phases {json.dumps(breakdown)}", flush=True)
+    point_sizes = {12 * total, 12 * min(10**6, total), 12 * (total % 10**6)} - {0}
+    for kind, b, _, phase in copies:
+        if "DtoH" in kind and "Pageable" in kind and (b in point_sizes or phase == "ply_write"):
+            fail(f"transfers: a pageable device-to-host copy of {b} bytes in {phase}: "
+                 "the point buffer crossed pageable")
+    if not any(kind.endswith("(Device -> Pinned)") and phase == "ply_write"
+               for kind, _, _, phase in copies):
+        fail("transfers: ply_write made no pinned device-to-host copy")
 
 
 def k1_share(ms: float, bound) -> str:
@@ -2085,6 +2259,8 @@ def main() -> int:
     os.makedirs(work)
     try:
         arrays, launches, e2e = phase_e2e(device, work)
+        phase_transfers(device, work, e2e, smi)
+        del e2e["cloud"]
         files = (e2e["tj"], e2e["masks"])
         phase_sh(device, work, arrays, e2e["cols_u8"], *files)
         phase_mesh(device, work, e2e["ply"], *files)

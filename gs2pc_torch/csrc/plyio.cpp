@@ -161,6 +161,80 @@ class StreamWriter {
   std::atomic<bool> error_;
 };
 
+// The PLY header of `total` vertices, with or without normals.
+bool WriteHeader(DirectSink* sink, int64_t total, bool with_normals) {
+  char header[512];
+  int hlen;
+  if (with_normals) {
+    hlen = snprintf(header, sizeof(header),
+                    "ply\nformat binary_little_endian 1.0\n"
+                    "element vertex %lld\n"
+                    "property float x\nproperty float y\nproperty float z\n"
+                    "property float nx\nproperty float ny\nproperty float nz\n"
+                    "property uchar red\nproperty uchar green\nproperty uchar "
+                    "blue\nend_header\n",
+                    static_cast<long long>(total));
+  } else {
+    hlen = snprintf(header, sizeof(header),
+                    "ply\nformat binary_little_endian 1.0\n"
+                    "element vertex %lld\n"
+                    "property float x\nproperty float y\nproperty float z\n"
+                    "property uchar red\nproperty uchar green\nproperty uchar "
+                    "blue\nend_header\n",
+                    static_cast<long long>(total));
+  }
+  return sink->Write(header, static_cast<size_t>(hlen));
+}
+
+// Vertex records of rows [lo, hi): positions from `pts` (row `lo` first),
+// colours and normals of each row's Gaussian, the last g with
+// offs[g] <= row.  The pack threads are joined before it returns, so `pts`
+// is no longer read once it has.
+std::vector<char> PackRows(const float* pts, int64_t lo, int64_t hi,
+                           const int64_t* offs /* (P + 1,) */, int64_t P,
+                           const uint8_t* cols, const float* normals) {
+  const size_t stride = (normals != nullptr) ? 27 : 15;
+  std::vector<char> buf(static_cast<size_t>(hi - lo) * stride);
+  const unsigned hw = std::thread::hardware_concurrency();
+  const int64_t n_pack_threads = hw > 2 ? hw - 1 : 1;
+  const int64_t rows = hi - lo;
+  const int64_t per = (rows + n_pack_threads - 1) / n_pack_threads;
+  std::vector<std::thread> packers;
+  for (int64_t t = 0; t < n_pack_threads; ++t) {
+    const int64_t a = lo + t * per;
+    const int64_t b = (a + per < hi) ? a + per : hi;
+    if (a >= b) break;
+    packers.emplace_back([&, a, b] {
+      int64_t g = std::upper_bound(offs, offs + P + 1, a) - offs - 1;
+      for (int64_t i = a; i < b; ++i) {
+        while (g + 1 <= P && offs[g + 1] <= i) ++g;
+        char* rec = buf.data() + (i - lo) * stride;
+        std::memcpy(rec, pts + 3 * (i - lo), 12);
+        size_t off = 12;
+        if (normals != nullptr) {
+          std::memcpy(rec + off, normals + 3 * g, 12);
+          off += 12;
+        }
+        std::memcpy(rec + off, cols + 3 * g, 3);
+      }
+    });
+  }
+  for (auto& th : packers) th.join();
+  return buf;
+}
+
+// A chunked write: the header at open, rows in order by chunk, the writer
+// thread draining packed chunks to the sink meanwhile.
+struct Session {
+  explicit Session(const char* path) : sink(path) {}
+  DirectSink sink;
+  StreamWriter* writer = nullptr;
+  int64_t total = 0;
+  int64_t written = 0;
+  bool with_normals = false;
+  bool ok = true;
+};
+
 }  // namespace
 
 extern "C" {
@@ -182,75 +256,73 @@ int gs2pc_write_ply_expand(const char* path, int64_t total,
     return -1;
   DirectSink sink(path);
   if (!sink.ok()) return -2;
-
-  char header[512];
-  int hlen;
-  if (normals != nullptr) {
-    hlen = snprintf(header, sizeof(header),
-                    "ply\nformat binary_little_endian 1.0\n"
-                    "element vertex %lld\n"
-                    "property float x\nproperty float y\nproperty float z\n"
-                    "property float nx\nproperty float ny\nproperty float nz\n"
-                    "property uchar red\nproperty uchar green\nproperty uchar "
-                    "blue\nend_header\n",
-                    static_cast<long long>(total));
-  } else {
-    hlen = snprintf(header, sizeof(header),
-                    "ply\nformat binary_little_endian 1.0\n"
-                    "element vertex %lld\n"
-                    "property float x\nproperty float y\nproperty float z\n"
-                    "property uchar red\nproperty uchar green\nproperty uchar "
-                    "blue\nend_header\n",
-                    static_cast<long long>(total));
-  }
-  if (!sink.Write(header, static_cast<size_t>(hlen))) return -3;
+  if (!WriteHeader(&sink, total, normals != nullptr)) return -3;
 
   // Prefix offsets so each pack thread can binary-search its start row.
   std::vector<int64_t> offs(static_cast<size_t>(P) + 1);
   offs[0] = 0;
   for (int64_t i = 0; i < P; ++i) offs[i + 1] = offs[i] + counts[i];
 
-  const size_t stride = (normals != nullptr) ? 27 : 15;
   if (chunk_size <= 0) chunk_size = 1 << 20;
 
   bool ok = true;
   {
     StreamWriter writer(&sink);
-    const unsigned hw = std::thread::hardware_concurrency();
-    const int64_t n_pack_threads = hw > 2 ? hw - 1 : 1;
-    for (int64_t lo = 0; lo < total && ok; lo += chunk_size) {
+    for (int64_t lo = 0; lo < total; lo += chunk_size) {
       const int64_t hi = lo + chunk_size < total ? lo + chunk_size : total;
-      std::vector<char> buf(static_cast<size_t>(hi - lo) * stride);
-      const int64_t rows = hi - lo;
-      const int64_t per = (rows + n_pack_threads - 1) / n_pack_threads;
-      std::vector<std::thread> packers;
-      for (int64_t t = 0; t < n_pack_threads; ++t) {
-        const int64_t a = lo + t * per;
-        const int64_t b = (a + per < hi) ? a + per : hi;
-        if (a >= b) break;
-        packers.emplace_back([&, a, b, lo] {
-          // Gaussian owning point `a`: last g with offs[g] <= a.
-          int64_t g =
-              std::upper_bound(offs.begin(), offs.end(), a) - offs.begin() - 1;
-          for (int64_t i = a; i < b; ++i) {
-            while (g + 1 <= P && offs[g + 1] <= i) ++g;
-            char* rec = buf.data() + (i - lo) * stride;
-            std::memcpy(rec, pts + 3 * i, 12);
-            size_t off = 12;
-            if (normals != nullptr) {
-              std::memcpy(rec + off, normals + 3 * g, 12);
-              off += 12;
-            }
-            std::memcpy(rec + off, cols + 3 * g, 3);
-          }
-        });
-      }
-      for (auto& th : packers) th.join();
-      writer.Push(std::move(buf));
+      writer.Push(PackRows(pts + 3 * lo, lo, hi, offs.data(), P, cols, normals));
     }
-    ok = writer.Finish() && ok;
+    ok = writer.Finish();
   }
   ok = sink.Close() && ok;
+  return ok ? 0 : -4;
+}
+
+// The same records written chunk by chunk, for points that reach the host
+// a chunk at a time (gs2pc_torch/pipeline.py::LazyPointCloud): open writes
+// the header and returns a handle (NULL on failure); each write_chunk packs
+// rows [lo, hi), which must follow the rows written before, and queues
+// them on the writer thread; close waits for the writes, checks that all
+// `total` rows came, frees the handle and returns 0 or a negative code.
+void* gs2pc_ply_open(const char* path, int64_t total, int with_normals) {
+  if (total < 0) return nullptr;
+  Session* s = new Session(path);
+  if (!s->sink.ok() || !WriteHeader(&s->sink, total, with_normals != 0)) {
+    delete s;
+    return nullptr;
+  }
+  s->total = total;
+  s->with_normals = with_normals != 0;
+  s->writer = new StreamWriter(&s->sink);
+  return s;
+}
+
+// Returns only after it has read every row of `pts` (rows lo..hi-1, row lo
+// first), so the caller may then reuse that buffer.  0 on success, a
+// negative code otherwise (the session then stays failed).
+int gs2pc_ply_write_chunk(void* handle, const float* pts, int64_t lo, int64_t hi,
+                          const int64_t* offs /* (P + 1,) */, int64_t P,
+                          const uint8_t* cols /* (P, 3) */,
+                          const float* normals /* (P, 3), nullable */) {
+  Session* s = static_cast<Session*>(handle);
+  if (s == nullptr || !s->ok) return -1;
+  if (pts == nullptr || offs == nullptr || cols == nullptr || lo != s->written ||
+      hi < lo || hi > s->total || (normals != nullptr) != s->with_normals) {
+    s->ok = false;
+    return -1;
+  }
+  if (hi > lo) s->writer->Push(PackRows(pts, lo, hi, offs, P, cols, normals));
+  s->written = hi;
+  return 0;
+}
+
+int gs2pc_ply_close(void* handle) {
+  Session* s = static_cast<Session*>(handle);
+  if (s == nullptr) return -1;
+  bool ok = s->writer->Finish() && s->ok && s->written == s->total;
+  delete s->writer;
+  ok = s->sink.Close() && ok;
+  delete s;
   return ok ? 0 : -4;
 }
 

@@ -5,13 +5,18 @@ Reading: ``read_ply`` is the JAX package's dependency-free numpy codec,
 copied unchanged (binary little/big endian and ascii, scalar properties;
 list properties only through the row-wise path).
 
-Writing: the cloud is host-resident, positions (N, 3) and per-Gaussian
-uint8 colours / normals that expand over the per-Gaussian point counts
-(points are slot-major, so colours and normals are row repeats).  The bytes
-match the JAX package's writer: binary little-endian, float32 x y z
-[nx ny nz], uchar red green blue.  The native C++ expand-writer
-(``csrc/plyio.cpp``, built with g++ at first use) packs and writes; where
-no g++ is found or the build fails, numpy does.
+Writing: a cloud is positions (N, 3) and per-Gaussian uint8 colours /
+normals that expand over the per-Gaussian point counts (points are
+slot-major, so colours and normals are row repeats).  An eager
+``PointCloud`` holds its positions on the host; a lazy one
+(gs2pc_torch.pipeline.LazyPointCloud) keeps them on the device and hands
+them over a chunk at a time, the next chunk's copy in flight while the
+current one is written, as the JAX package streams its LazyPointCloud.
+The bytes match the JAX package's writer: binary little-endian, float32
+x y z [nx ny nz], uchar red green blue.  The native C++ writer
+(``csrc/plyio.cpp``, built with g++ at first use) packs and writes, in one
+call or chunk by chunk; where no g++ is found or the build fails, numpy
+does.
 """
 
 from __future__ import annotations
@@ -212,30 +217,84 @@ def _native_expand(cloud: PointCloud, filename: str, chunk_size: int) -> bool:
     return rc == 0
 
 
-def save_point_cloud_ply(cloud: PointCloud, filename: str, chunk_size: int = 10**6) -> str:
-    """Write ``cloud``; returns which writer ran ("native_expand" or "numpy")."""
-    if int(cloud.counts.sum()) != cloud.total:
-        raise ValueError("point counts must sum to the number of points")
-    if _native_expand(cloud, filename, chunk_size):
-        return "native_expand"
-    with_normals = cloud.gauss_normals is not None
+def _native_stream(lib, cloud, filename: str, chunk_size: int) -> None:
+    """Write a lazy cloud through the native session: each chunk of rows is
+    packed and queued on the writer thread while the next chunk's copy to
+    the host is in flight (``cloud.point_rows``); raises on any failure."""
+    offs = np.zeros(cloud.counts.shape[0] + 1, np.int64)
+    np.cumsum(cloud.counts, out=offs[1:])
+    cols = np.ascontiguousarray(cloud.cols_u8, np.uint8)
+    nrm = None if cloud.gauss_normals is None else np.ascontiguousarray(
+        cloud.gauss_normals, np.float32
+    )
+    cols_p = cols.ctypes.data_as(ctypes.c_void_p)
+    nrm_p = None if nrm is None else nrm.ctypes.data_as(ctypes.c_void_p)
+    handle = lib.gs2pc_ply_open(filename.encode(), cloud.total, int(nrm is not None))
+    if handle is None:
+        raise OSError(f"gs2pc_ply_open: cannot write {filename}")
+    try:
+        for lo, pts in cloud.point_rows(chunk_size):
+            if pts.dtype != np.float32 or not pts.flags["C_CONTIGUOUS"]:
+                raise ValueError("point chunks must be C-contiguous float32 rows")
+            rc = lib.gs2pc_ply_write_chunk(
+                handle, pts.ctypes.data_as(ctypes.c_void_p), lo, lo + pts.shape[0],
+                offs.ctypes.data_as(ctypes.c_void_p), int(cols.shape[0]), cols_p, nrm_p,
+            )
+            if rc != 0:
+                raise OSError(f"gs2pc_ply_write_chunk: rows from {lo} failed ({rc})")
+    finally:
+        rc = lib.gs2pc_ply_close(handle)
+    if rc != 0:
+        raise OSError(f"gs2pc_ply_close: writing {filename} failed ({rc})")
+
+
+def _eager_chunks(cloud: PointCloud, chunk_size: int):
+    gid = cloud.gauss_ids()
+    for lo in range(0, cloud.total, chunk_size):
+        hi = min(lo + chunk_size, cloud.total)
+        g = gid[lo:hi]
+        yield (cloud.points[lo:hi], cloud.cols_u8[g],
+               None if cloud.gauss_normals is None else cloud.gauss_normals[g])
+
+
+def _write_numpy(filename: str, total: int, with_normals: bool, chunks) -> None:
+    """Pack (points, colours u8, normals or None) chunks with numpy."""
     fields = [("x", "<f4"), ("y", "<f4"), ("z", "<f4")]
     if with_normals:
         fields += [("nx", "<f4"), ("ny", "<f4"), ("nz", "<f4")]
     fields += [("red", "u1"), ("green", "u1"), ("blue", "u1")]
-    gid = cloud.gauss_ids()
     with open(filename, "wb") as fh:
-        fh.write(ply_header(cloud.total, with_normals))
-        for lo in range(0, cloud.total, chunk_size):
-            hi = min(lo + chunk_size, cloud.total)
-            v = np.zeros(hi - lo, dtype=fields)
-            pts = cloud.points[lo:hi]
+        fh.write(ply_header(total, with_normals))
+        for pts, cols, nrm in chunks:
+            v = np.zeros(pts.shape[0], dtype=fields)
             v["x"], v["y"], v["z"] = pts[:, 0], pts[:, 1], pts[:, 2]
-            g = gid[lo:hi]
             if with_normals:
-                nrm = cloud.gauss_normals[g]
                 v["nx"], v["ny"], v["nz"] = nrm[:, 0], nrm[:, 1], nrm[:, 2]
-            cols = cloud.cols_u8[g]
             v["red"], v["green"], v["blue"] = cols[:, 0], cols[:, 1], cols[:, 2]
             fh.write(v.tobytes())
+
+
+def save_point_cloud_ply(cloud, filename: str, chunk_size: int = 10**6) -> str:
+    """Write ``cloud``; returns which writer ran.
+
+    A lazy cloud (one with ``stream_chunks``: pipeline.LazyPointCloud, its
+    points still on the device) streams: "native_stream" through the native
+    session, else "numpy_stream", chunk by chunk.  An eager ``PointCloud``
+    is written by "native_expand", else "numpy".  All four write the same
+    bytes."""
+    if int(cloud.counts.sum()) != cloud.total:
+        raise ValueError("point counts must sum to the number of points")
+    with_normals = cloud.gauss_normals is not None
+    if hasattr(cloud, "stream_chunks"):
+        from gs2pc_torch.ops.cuda_build import load_plyio
+
+        lib = load_plyio()
+        if lib is not None:
+            _native_stream(lib, cloud, filename, chunk_size)
+            return "native_stream"
+        _write_numpy(filename, cloud.total, with_normals, cloud.stream_chunks(chunk_size))
+        return "numpy_stream"
+    if _native_expand(cloud, filename, chunk_size):
+        return "native_expand"
+    _write_numpy(filename, cloud.total, with_normals, _eager_chunks(cloud, chunk_size))
     return "numpy"

@@ -160,6 +160,19 @@ _PLYIO_SIGNATURES = {
         _P,  # normals f32 (P, 3) or NULL
         _I64,  # chunk size
     ]),
+    # The chunked session (LazyPointCloud's rows, a chunk at a time).
+    "gs2pc_ply_open": (_P, [ctypes.c_char_p, _I64, _I]),  # path, total, normals -> handle
+    "gs2pc_ply_write_chunk": (_I, [
+        _P,  # handle
+        _P,  # points f32 (hi - lo, 3), row lo first
+        _I64,  # lo
+        _I64,  # hi
+        _P,  # offsets i64 (P + 1,): the counts' prefix from 0
+        _I64,  # P
+        _P,  # colours u8 (P, 3)
+        _P,  # normals f32 (P, 3) or NULL
+    ]),
+    "gs2pc_ply_close": (_I, [_P]),
 }
 _MESHER_SIGNATURES = {
     "gs2pc_marching_tet": (_I, [

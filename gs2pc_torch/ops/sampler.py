@@ -172,10 +172,13 @@ def sample_points(
     max_points: Optional[int] = None,
     draws: Optional[tuple] = None,
     block: Optional[tuple] = None,
+    prefix: Optional[tuple] = None,
 ) -> SampledPoints:
     """Slots ``block`` = [lo, hi) (default: all n, see slot_prefix) of the
     cloud, with JAX's draws under ``key`` (gs2pc_torch.ops.prng; JAX's
     sample_points(key, ...) with the same key draws the same numbers).
+    ``prefix`` is slot_prefix(points_per_gaussian, n_cap, max_points) where
+    the caller has it already (computed here otherwise).
 
     Each slot's values depend on the slot alone, so blocks concatenated in
     order equal the whole range bit for bit.  K5 (gs2pc_torch/csrc/
@@ -185,7 +188,7 @@ def sample_points(
     dev = points_per_gaussian.device
     if dev.type == "cpu":
         return sample_points_torch(key, gaussians, points_per_gaussian, n_cap, mahalanobis_std,
-                                   max_points, draws, block)
+                                   max_points, draws, block, prefix)
     if dev.type != "cuda":
         raise ValueError(f"sample_points: unsupported device {dev}")
     if draws is not None:
@@ -201,7 +204,7 @@ def sample_points(
     # The key words and the library first: host work done before the sync.
     (kz0, kz1), (ku0, ku1) = prng.split_words(key)
     lib = load_library()
-    prefix, n = slot_prefix(points_per_gaussian, n_cap, max_points)
+    prefix, n = slot_prefix(points_per_gaussian, n_cap, max_points) if prefix is None else prefix
     lo, hi = _block(block, n)
     points = torch.empty((hi - lo, 3), dtype=torch.float32, device=dev)
     gid = torch.empty(hi - lo, dtype=torch.int64, device=dev)
@@ -229,14 +232,16 @@ def sample_points_torch(
     max_points: Optional[int] = None,
     draws: Optional[tuple] = None,
     block: Optional[tuple] = None,
+    prefix: Optional[tuple] = None,
 ) -> SampledPoints:
     """K5's twin, on any device: the slot's owner by a search of the quota
-    prefix, its draws from gs2pc_torch.ops.prng at the global slot counters
-    (or rows of ``draws``), then the radius, direction, scale and rotation
-    in K5's order of float operations."""
+    prefix (``prefix`` as sample_points takes it), its draws from
+    gs2pc_torch.ops.prng at the global slot counters (or rows of
+    ``draws``), then the radius, direction, scale and rotation in K5's
+    order of float operations."""
     ppg = points_per_gaussian.to(torch.int64)
     dev = ppg.device
-    prefix, n = slot_prefix(ppg, n_cap, max_points)
+    prefix, n = slot_prefix(ppg, n_cap, max_points) if prefix is None else prefix
     lo, hi = _block(block, n)
     slots = torch.arange(lo, hi, device=dev)
     gid = torch.searchsorted(prefix, slots, right=True)

@@ -1,7 +1,9 @@
 """End-to-end conversion: load -> camera sweep (on one device, or sharded
 over several, one process each; or a saved sweep) -> cull chain -> PSD
-clamp -> sample -> host point cloud, and with --generate_mesh a second,
-surface point cloud (counterpart of gs2pc.pipeline.convert_3dgs_to_pc).
+clamp -> sample -> a point cloud whose positions stay on the device until
+the PLY writer streams them (LazyPointCloud), and with --generate_mesh a
+second, surface point cloud (counterpart of
+gs2pc.pipeline.convert_3dgs_to_pc).
 
 Culled Gaussians stay in place with keep_mask False and get a zero point
 quota, as in the JAX package, so every cull predicate sees the initial set.
@@ -18,7 +20,7 @@ cloud equals one device's bit for bit.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -66,6 +68,117 @@ AUTO_CAPACITY_ATTEMPTS = 3
 # Surface points per surface Gaussian for the mesh cloud (the reference's
 # gauss_to_pc.py:575).
 AVG_POINTS_PER_GAUSS_FOR_MESH = 25
+
+
+class LazyPointCloud:
+    """A point cloud whose positions stay on the device after sampling
+    (gs2pc.pipeline.LazyPointCloud): the PLY writer pulls them to the host
+    a chunk at a time (``point_rows`` / ``stream_chunks``), the next chunk's
+    copy in flight while the current one is packed and written.  Colours
+    and normals stay per-Gaussian host planes that expand over ``counts``
+    (points are slot-major, so they are row repeats).
+
+    A drop-in for io.ply.PointCloud: ``total``, ``counts``, ``cols_u8``,
+    ``gauss_normals``, ``gauss_ids()``, ``normals``, and ``points``, which
+    copies the positions to the host once and keeps them.  ``device_points``
+    holds them on their device, (total, 3) float32."""
+
+    def __init__(self, points: torch.Tensor, counts: np.ndarray, cols_u8: np.ndarray,
+                 gauss_normals: Optional[np.ndarray], total: int):
+        """``points``: (m, 3) float32 on its device, m >= ``total``, made on
+        that device's current stream (which the copies wait for)."""
+        if points.dtype != torch.float32 or points.dim() != 2 or points.shape[1] != 3:
+            raise ValueError("points must be an (m, 3) float32 tensor")
+        if points.shape[0] < total:
+            raise ValueError(f"{points.shape[0]} point rows for a cloud of {total}")
+        self.device_points = points[:total].contiguous()
+        self.counts = counts
+        self.cols_u8 = cols_u8
+        self.gauss_normals = gauss_normals
+        self.total = int(total)
+        self._stream = (torch.cuda.current_stream(points.device)
+                        if points.device.type == "cuda" else None)
+        self._copy_stream = None
+        self._points = None
+
+    def gauss_ids(self) -> np.ndarray:
+        return np.repeat(np.arange(self.counts.shape[0], dtype=np.int64), self.counts)
+
+    @property
+    def normals(self) -> Optional[np.ndarray]:
+        if self.gauss_normals is None:
+            return None
+        return self.gauss_normals[self.gauss_ids()]
+
+    @property
+    def points(self) -> np.ndarray:
+        if self._points is None:
+            if self._stream is None:
+                self._points = self.device_points.numpy()
+            else:
+                with torch.cuda.stream(self._stream):
+                    self._points = self.device_points.cpu().numpy()
+        return self._points
+
+    def point_rows(self, chunk_rows: int = 10**6):
+        """Yield (lo, rows lo..lo+n-1 as an (n, 3) float32 array) in order.
+
+        On a card the rows come through two pinned host buffers on a side
+        stream (one a cloud) that waits for the stream that made the points:
+        chunk k + 1's copy is issued into the other buffer before chunk k is
+        yielded, so it runs while the consumer works on chunk k, and a buffer
+        is refilled only after the consumer has returned from the chunk that
+        used it.  A chunk's array is therefore valid only until the next one
+        is asked for.  On the CPU the chunks are slices of the points."""
+        total = self.total
+        if chunk_rows <= 0:
+            raise ValueError("chunk_rows must be positive")
+        bounds = [(lo, min(lo + chunk_rows, total)) for lo in range(0, total, chunk_rows)]
+        src = self.device_points
+        if self._stream is None:
+            def issue(k):
+                lo, hi = bounds[k]
+                return lambda: src[lo:hi].numpy()
+        else:
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(src.device)
+            side = self._copy_stream
+            side.wait_stream(self._stream)
+            rows = min(chunk_rows, total)
+            bufs = [torch.empty((rows, 3), dtype=torch.float32, pin_memory=True)
+                    for _ in range(min(2, len(bounds)))]
+
+            def issue(k):
+                lo, hi = bounds[k]
+                buf = bufs[k % 2][:hi - lo]
+                with torch.cuda.stream(side):
+                    buf.copy_(src[lo:hi], non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record(side)
+
+                def wait():
+                    done.synchronize()
+                    return buf.numpy()
+                return wait
+        try:
+            pending = issue(0) if bounds else None
+            for k, (lo, _) in enumerate(bounds):
+                ahead = issue(k + 1) if k + 1 < len(bounds) else None
+                yield lo, pending()
+                pending = ahead
+        finally:
+            if self._copy_stream is not None:
+                self._copy_stream.synchronize()
+
+    def stream_chunks(self, chunk_rows: int = 10**6):
+        """Yield (points (n, 3) float32, colours (n, 3) uint8, normals (n, 3)
+        float32 or None) in chunk order (point_rows' chunks, whose points
+        are valid only until the next chunk is asked for)."""
+        gid = self.gauss_ids()
+        for lo, pts in self.point_rows(chunk_rows):
+            g = gid[lo:lo + pts.shape[0]]
+            yield (pts, self.cols_u8[g],
+                   None if self.gauss_normals is None else self.gauss_normals[g])
 
 
 def set_precision() -> None:
@@ -162,22 +275,24 @@ class SamplingJob(NamedTuple):
     max_points: Optional[int]
 
 
-def sample_on_axis(axis, job: SamplingJob, root=None) -> Optional[torch.Tensor]:
+def sample_on_axis(axis, job: SamplingJob, root=None, prefix=None) -> Optional[torch.Tensor]:
     """One sampling split over the ranks of ``axis`` (a rank function of
     gs2pc_torch.parallel.launch.run): rank 0's ``root`` = (quotas, xyz,
     log_scales, rots) broadcast, rank r samples block r of
     mesh.split_evenly(n, ranks) with K5, and rank 0 gathers the blocks in
     rank order.  Rank 0 gets the (n, 3) points, the others None.  Each step
     is a phase (sample_broadcast, sample_block, sample_gather), summed over
-    a conversion's samplings."""
+    a conversion's samplings.  ``prefix``: rank 0's slot_prefix of the
+    quotas, which the other ranks compute from theirs."""
     with log.phase("sample_broadcast"):
         ppg, xyz, log_scales, rots = axis.broadcast_tensors(root)
     with log.phase("sample_block"):
-        _, n = slot_prefix(ppg, job.n_cap, job.max_points)
-        blocks = mesh.split_evenly(n, axis.size)
+        if prefix is None:
+            prefix = slot_prefix(ppg, job.n_cap, job.max_points)
+        blocks = mesh.split_evenly(prefix[1], axis.size)
         part = sample_points(
             torch.tensor(job.key), SamplerScene(xyz, log_scales, rots), ppg, job.n_cap,
-            job.std, job.max_points, block=blocks[axis.rank],
+            job.std, job.max_points, block=blocks[axis.rank], prefix=prefix,
         ).points
     with log.phase("sample_gather"):
         return axis.gather_blocks(part, [hi - lo for lo, hi in blocks])
@@ -198,12 +313,14 @@ def generate_point_cloud(
     num_points: Optional[int] = None,
     seed_offset: int = 0,
     axis=None,
-) -> PointCloud:
-    """Quotas -> sampled positions -> host point cloud, for
-    ``num_points`` (default ``settings.num_points``) drawn with JAX's key
+) -> LazyPointCloud:
+    """Quotas -> sampled positions -> a point cloud whose positions stay on
+    the device until it is written (LazyPointCloud), for ``num_points``
+    (default ``settings.num_points``) drawn with JAX's key
     ``PRNGKey(settings.seed + seed_offset)`` (gs2pc/pipeline.py:589).  On
     rank 0 of an SPMD ``axis`` the slots are split over its ranks
-    (sample_on_axis; the others run serve_samplings)."""
+    (sample_on_axis; the others run serve_samplings).  The quotas' slot
+    prefix is computed once and serves the sampler and the counts."""
     if num_points is None:
         num_points = settings.num_points
     sizes = gaussians.magnitudes(contributions=contributions)
@@ -217,37 +334,37 @@ def generate_point_cloud(
         std=settings.mahalanobis_distance_std,
         max_points=num_points if settings.exact_num_points else None,
     )
+    prefix, n = slot_prefix(ppg, job.n_cap, job.max_points)
     if axis is None:
         points = sample_points(torch.tensor(job.key), gaussians, ppg, job.n_cap, job.std,
-                               job.max_points).points
+                               job.max_points, prefix=(prefix, n)).points
     else:
         axis.broadcast_object(job)
         points = sample_on_axis(axis, job, (ppg, gaussians.xyz, gaussians.log_scales,
-                                            gaussians.rots))
+                                            gaussians.rots), prefix=(prefix, n))
     # Points per Gaussian: the quotas, the tail runs trimmed where n_cap /
     # max_points cut them.
-    prefix, n = slot_prefix(ppg, job.n_cap, job.max_points)
-    counts = np.diff(np.minimum(prefix.cpu().numpy(), n), prepend=0)
+    counts = torch.diff(torch.clamp(prefix, max=n), prepend=prefix.new_zeros(1))
     cols_u8 = torch.clamp(gaussians.colours, 0.0, 255.0).to(torch.uint8)
-    return PointCloud(
-        points=points.cpu().numpy(),
-        counts=counts,
-        cols_u8=cols_u8.cpu().numpy(),
-        gauss_normals=None if gaussians.normals is None else gaussians.normals.cpu().numpy(),
+    return LazyPointCloud(
+        points, counts.cpu().numpy(), cols_u8.cpu().numpy(),
+        None if gaussians.normals is None else gaussians.normals.cpu().numpy(), n,
     )
 
 
 class Conversion(NamedTuple):
-    cloud: PointCloud
+    # A LazyPointCloud; an io.ply.PointCloud once --clean_pointcloud ran.
+    cloud: Union[LazyPointCloud, PointCloud]
     # Summed sweep counters [pairs blended, window-truncated, run-cap
     # dropped, run-cap dropped on live tiles]; None without a sweep or
     # with a loaded one.
     sweep_diag: Optional[list]
-    # Which PLY writer ran ("native_expand" or "numpy"), once the CLI wrote.
+    # Which PLY writer ran (io.ply.save_point_cloud_ply: "native_stream" for
+    # a lazy cloud, "native_expand" for an eager one), once the CLI wrote.
     writer: Optional[str] = None
     # With --generate_mesh: the surface point cloud, and (surface
     # Gaussians, the points asked of them).
-    surface_cloud: Optional[PointCloud] = None
+    surface_cloud: Optional[LazyPointCloud] = None
     surface_quota: Optional[tuple] = None
     # The mesh, once the CLI built it.
     mesh: Optional[MeshResult] = None
@@ -409,7 +526,7 @@ def convert_3dgs_to_pc(
     and sweep_devices; 1 by default, as in the JAX package's library, while
     the CLI's --num_devices defaults to 0), or the sweep loaded from
     ``settings.load_sweep`` (then no transforms are needed); returns the
-    host point cloud, and the surface point cloud with --generate_mesh.
+    point cloud (LazyPointCloud), and the surface point cloud with --generate_mesh.
 
     A sweep over several devices runs as an SPMD program, one process per
     device (gs2pc_torch.parallel.launch; this process is rank 0 on

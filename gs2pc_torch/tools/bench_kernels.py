@@ -28,7 +28,9 @@ a file, so the same script times an older tree beside this one: run them
 in turns, A B B A, in one call on one card).  ``--e2e N`` also runs the
 production conversion of that scene (16 cameras, 10M points) N times
 through ``cli.main`` and records each wall and its phases; ``--profile``
-adds one run under torch.profiler (the card's busy time, its top kernels);
+adds one run under torch.profiler (the card's busy time, its top kernels,
+and for scene_parse, scene_upload, point_sampling and ply_write the copies
+by kind, the kernels' time and the host time outside PyTorch's ops);
 ``--num_devices`` passes the CLI's own flag (on a machine with several
 cards, 1 runs one card and 0, the CLI's default, every card, one process
 each); ``--e2e_only`` skips the kernels.  A card is required.  Prints one JSON
@@ -290,10 +292,90 @@ def time_probes(device, reps: int) -> dict:
     return rec
 
 
-def device_profile(fn) -> dict:
+# The phases whose host transfers device_profile breaks down.
+TRANSFER_PHASES = ("scene_parse", "scene_upload", "point_sampling", "ply_write")
+
+
+def _trace(path: str) -> tuple:
+    """(events, phase ranges (start, end, name, pid, tid), host call time by
+    correlation id) of a torch.profiler Chrome trace; the phases are the
+    ranges utils.log.phase records."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    phases = [(e["ts"], e["ts"] + e["dur"], e["name"], e.get("pid"), e.get("tid"))
+              for e in events if e.get("cat") == "user_annotation"]
+    issued = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+    return events, phases, issued
+
+
+def _phase_of(ts, phases, names) -> Optional[str]:
+    around = [p for p in phases if p[2] in names and ts is not None and p[0] <= ts <= p[1]]
+    return min(around, key=lambda p: p[1] - p[0])[2] if around else None
+
+
+def trace_copies(path: str, names: Sequence[str]) -> list:
+    """The device copies of a torch.profiler Chrome trace: (kind, e.g.
+    "Memcpy DtoH (Device -> Pageable)", bytes, device ms, the innermost of
+    the phases ``names`` around the host call that issued it, or None)."""
+    events, phases, issued = _trace(path)
+    copies = []
+    for e in events:
+        if e.get("cat") != "gpu_memcpy":
+            continue
+        args = e.get("args", {})
+        if "bytes" not in args:
+            raise ValueError(f"the profiler's copy {e.get('name')} carries no byte count")
+        phase = _phase_of(issued.get(args.get("correlation")), phases, names)
+        copies.append((e["name"], int(args["bytes"]), e.get("dur", 0) / 1e3, phase))
+    return copies
+
+
+def trace_phases(path: str, names: Sequence[str] = TRANSFER_PHASES) -> dict:
+    """Each phase ``names`` of a torch.profiler Chrome trace: its wall (ms),
+    the device copies its host calls issued by kind (count, bytes, device
+    ms), the device ms of its kernels, and its host ms outside every
+    PyTorch op and CUDA call (numpy and Python work, the native writer)."""
+    events, phases, issued = _trace(path)
+    out = {}
+    for start, end, name, pid, tid in phases:
+        if name not in names:
+            continue
+        rec = out.setdefault(name, {"wall_ms": 0.0, "copies": {}, "kernels_ms": 0.0,
+                                    "host_outside_ops_ms": 0.0})
+        rec["wall_ms"] += (end - start) / 1e3
+        spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                       if e.get("cat") in ("cpu_op", "cuda_runtime") and e.get("pid") == pid
+                       and e.get("tid") == tid and start <= e["ts"] <= end)
+        covered, reach = 0.0, start
+        for a, b in spans:
+            a, b = max(a, reach), min(b, end)
+            if b > a:
+                covered += b - a
+                reach = b
+        rec["host_outside_ops_ms"] += (end - start - covered) / 1e3
+    for e in events:
+        cat = e.get("cat")
+        if cat not in ("gpu_memcpy", "kernel"):
+            continue
+        phase = _phase_of(issued.get(e.get("args", {}).get("correlation")), phases, names)
+        if phase is None:
+            continue
+        if cat == "kernel":
+            out[phase]["kernels_ms"] += e.get("dur", 0) / 1e3
+            continue
+        k = out[phase]["copies"].setdefault(e["name"], {"count": 0, "bytes": 0, "ms": 0.0})
+        k["count"] += 1
+        k["bytes"] += int(e["args"].get("bytes", 0))
+        k["ms"] += e.get("dur", 0) / 1e3
+    return out
+
+
+def device_profile(fn, trace: str) -> dict:
     """Run ``fn`` once under torch.profiler: its wall, the card's busy time
-    (the summed time of every kernel and copy on the card) and the kernels
-    that took the most of it."""
+    (the summed time of every kernel and copy on the card), the kernels
+    that took the most of it, and trace_phases of the transfer phases (the
+    Chrome trace written to ``trace`` on the way, then removed)."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -303,6 +385,9 @@ def device_profile(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    prof.export_chrome_trace(trace)
+    phases = trace_phases(trace)
+    os.remove(trace)
 
     # Device-side events, without the phase ranges (user annotations).
     from gs2pc_torch.utils import log
@@ -313,7 +398,8 @@ def device_profile(fn) -> dict:
     events = sorted(kernels, key=_device_us, reverse=True)
     busy = sum(_device_us(e) for e in events) / 1e6
     return {"wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
-            "top_ms": {e.key[:60]: _device_us(e) / 1e3 for e in events[:10]}}
+            "top_ms": {e.key[:60]: _device_us(e) / 1e3 for e in events[:10]},
+            "phases": phases}
 
 
 def time_e2e(root: str, n_gaussians: int, n_runs: int, profile: bool,
@@ -348,7 +434,8 @@ def time_e2e(root: str, n_gaussians: int, n_runs: int, profile: bool,
             runs.append(dict(wall_s=time.perf_counter() - t0, **log.PHASE_SECONDS))
         out = {"runs": runs}
         if profile:
-            out["profile"] = device_profile(lambda: cli.main(argv))
+            out["profile"] = device_profile(lambda: cli.main(argv),
+                                            os.path.join(work, "trace.json"))
         return out
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -747,3 +747,130 @@ def test_sampler_kernel_blocks_equal_the_whole(cuda):
     before = S.sample_points.launches
     assert S.sample_points(key, g, ppg, n_cap, block=(n_cap, n_cap)).points.shape == (0, 3)
     assert S.sample_points.launches == before
+
+
+def _lazy_case(device, n_gauss=3000, seed=11, with_normals=True):
+    """(lazy cloud on ``device``, its host points, counts, colours, normals):
+    counts in 0..8 with every fifth Gaussian empty."""
+    r = np.random.default_rng(seed)
+    counts = r.integers(0, 9, n_gauss).astype(np.int64)
+    counts[::5] = 0
+    total = int(counts.sum())
+    pts = r.standard_normal((total, 3)).astype(np.float32)
+    cols = r.integers(0, 256, (n_gauss, 3)).astype(np.uint8)
+    nrm = r.standard_normal((n_gauss, 3)).astype(np.float32) if with_normals else None
+    cloud = pipeline.LazyPointCloud(torch.tensor(pts, device=device), counts, cols, nrm, total)
+    return cloud, pts, counts, cols, nrm
+
+
+@pytest.mark.parametrize("chunk", ["7", "1000", "total+1"])
+def test_lazy_cloud_streams_the_eager_bytes_on_card(cuda, tmp_path, chunk):
+    """A lazy cloud on the card streams the eager writer's bytes through the
+    native session, at chunks of 7 and 1000 rows and one chunk past the
+    whole cloud."""
+    from gs2pc_torch.io.ply import PointCloud, save_point_cloud_ply
+
+    cloud, pts, counts, cols, nrm = _lazy_case(cuda)
+    rows = cloud.total + 1 if chunk == "total+1" else int(chunk)
+    lazy, eager = str(tmp_path / "lazy.ply"), str(tmp_path / "eager.ply")
+    assert save_point_cloud_ply(cloud, lazy, chunk_size=rows) == "native_stream"
+    assert save_point_cloud_ply(PointCloud(pts, counts, cols, nrm), eager,
+                                chunk_size=rows) == "native_expand"
+    assert open(lazy, "rb").read() == open(eager, "rb").read()
+
+
+def test_lazy_cloud_stages_through_pinned_buffers_on_a_side_stream(cuda):
+    """The chunks reach the host through pinned buffers, copied on a stream
+    other than the one that made the points; two buffers take turns."""
+    cloud, pts, *_ = _lazy_case(cuda)
+    seen = []
+    for lo, part in cloud.point_rows(1000):
+        host = torch.from_numpy(part)
+        assert host.is_pinned()
+        np.testing.assert_array_equal(part, pts[lo:lo + part.shape[0]])
+        seen.append(host.data_ptr())
+    assert len(seen) > 2 and len(set(seen)) == 2
+    assert cloud._copy_stream is not None
+    assert cloud._copy_stream != torch.cuda.current_stream(cuda)
+    assert cloud._copy_stream != torch.cuda.default_stream(cuda)
+
+
+def test_k5_output_streams_without_a_sync(cuda, tmp_path):
+    """K5's points, sampled on a side stream and streamed to the writer at
+    once with no synchronise, write the bytes of the synchronised copy: the
+    copy stream waits for the stream that made the points."""
+    from gs2pc_torch.io.ply import PointCloud, save_point_cloud_ply
+
+    g = _scene(20_000, 12, cuda)
+    ppg = torch.tensor(np.random.default_rng(13).integers(0, 60, 20_000), dtype=torch.int32,
+                       device=cuda)
+    n_cap = int(ppg.sum())
+    counts = ppg.long().cpu().numpy()
+    cols = np.random.default_rng(14).integers(0, 256, (20_000, 3)).astype(np.uint8)
+    torch.cuda.synchronize()
+    producer = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(producer):
+        before = S.sample_points.launches
+        points = S.sample_points(prng.PRNGKey(5), g, ppg, n_cap).points
+        assert S.sample_points.launches == before + 1
+        cloud = pipeline.LazyPointCloud(points, counts, cols, None, n_cap)
+    lazy, synced = str(tmp_path / "lazy.ply"), str(tmp_path / "synced.ply")
+    assert save_point_cloud_ply(cloud, lazy, chunk_size=100_000) == "native_stream"
+    torch.cuda.synchronize()
+    save_point_cloud_ply(PointCloud(points.cpu().numpy(), counts, cols, None), synced,
+                         chunk_size=100_000)
+    assert open(lazy, "rb").read() == open(synced, "rb").read()
+
+
+@pytest.mark.parametrize("case", ["rgb", "rgb_compact", "sh", "sh_with_shs", "splat"])
+def test_hooked_upload_equals_from_numpy_on_card(cuda, tmp_path, case):
+    """load_gaussians on the card (each .ply plane uploaded from pinned
+    memory while the parse goes on; the .splat's after it) gives
+    from_numpy's scene of the parsed arrays bit for bit, usable on the
+    current stream without a synchronise."""
+    from gs2pc_torch.io import gaussians_io
+    from gs2pc_torch.io.splat import load_splat_gaussians, save_splat
+
+    a = capture.make_scene_arrays(50_000, seed=15)
+    kind = case.split("_")[0]
+    path = str(tmp_path / ("scene.splat" if kind == "splat" else "scene.ply"))
+    if kind == "rgb":
+        capture.write_scene_ply(path, a)
+    elif kind == "splat":
+        save_splat(path, a.xyz, a.log_scales, a.rots, a.colours, a.opacities)
+    else:
+        _write_sh_ply(path, a)
+    compact, with_shs = case.endswith("compact"), case.endswith("with_shs")
+    got = gaussians_io.load_gaussians(path, compact_colours=compact, with_shs=with_shs,
+                                      device=cuda)
+    parsed = (load_splat_gaussians(path) if kind == "splat"
+              else gaussians_io.load_ply_gaussians(path))
+    xyz, ls, rots, cols, op, shs = parsed
+    if compact:
+        cols = gaussians_io.quantise_colours_u8(cols)
+    want = Gaussians.from_numpy(xyz, ls, rots, cols, op, shs=shs if with_shs else None,
+                                device=cuda)
+    for name in ("xyz", "log_scales", "rots", "opacities", "colours", "shs", "keep_mask"):
+        x, y = getattr(got, name), getattr(want, name)
+        if y is None:
+            assert x is None, name
+        else:
+            assert x.device == y.device and torch.equal(x, y), name
+
+
+def _write_sh_ply(path, a):
+    """``a`` as a degree-3 SH .ply (f_dc from the colours, seeded f_rest)."""
+    n = a.xyz.shape[0]
+    f_dc = ((a.colours - 0.5) / 0.28209479177387814).astype(np.float32)
+    f_rest = np.random.default_rng(16).normal(0, 0.02, (n, 45)).astype(np.float32)
+    op = np.clip(a.opacities, 1e-6, 1 - 1e-6)
+    props = (["x", "y", "z"] + [f"f_dc_{i}" for i in range(3)]
+             + [f"f_rest_{i}" for i in range(45)] + ["opacity"]
+             + [f"scale_{i}" for i in range(3)] + [f"rot_{i}" for i in range(4)])
+    rows = np.concatenate([a.xyz, f_dc, f_rest, np.log(op / (1 - op))[:, None],
+                           a.log_scales, a.rots], axis=1).astype("<f4")
+    with open(path, "wb") as fh:
+        fh.write((f"ply\nformat binary_little_endian 1.0\nelement vertex {n}\n"
+                  + "".join(f"property float {p}\n" for p in props)
+                  + "end_header\n").encode("ascii"))
+        fh.write(rows.tobytes())
