@@ -126,14 +126,22 @@ Phases (each prints one line or more; any failure exits non-zero):
                device-to-host copy of
                the point buffer, ply_write's copies pinned; the bytes fetched
                and the planes' bytes uploaded from pinned memory printed
+ 25. bench     gs2pc_torch.bench.main() in this process at its defaults (the
+               north-star capture: 3M Gaussians, 45 cameras at 1280x720,
+               masks, surface pass, 10M points; two conversions, cold and
+               steady, on one card), its gate at the oracle phase's 200k
+               Gaussians with a fresh oracle cache: exit 0, steady, the points
+               written, the gate passed at coverage 1.0 with the accumulators
+               inside their gates, K1 91, K2 182 and K5 2 launches; its last
+               record printed as "bench: {...}"
 The line before the last is the kernels' JSON record (max_abs_err at the
 shape of phases 7-8 and 10 (K5: phase 7's); ms the time through the wrapper, also given as
 wrapper_ms, and launch_ms the launch alone, K2's count + write; K3 as the
 mean of its nine ops and apart for roll and scan, the ops one PyTorch call
 computes (library_ms: torch.roll, torch.cumprod); launches from the e2e run
-for the main mode and K5, from the depth-slab sweep of phase 9 for the others and
-from the probe tools' run of phase 10 for K3 / K4), the last line the
-device record.
+and the bench phase for the main mode, K2 and K5, from the depth-slab sweep
+of phase 9 for the others and from the probe tools' run of phase 10 for
+K3 / K4), the last line the device record.
 """
 
 from __future__ import annotations
@@ -2185,6 +2193,58 @@ def phase_dryrun(device):
               f"{launches}", flush=True)
 
 
+def phase_bench(work) -> dict:
+    """The port's bench in this process (gs2pc_torch.bench.main, stdout
+    captured) at its defaults, its gate at N_ORACLE_GAUSSIANS with a fresh
+    oracle cache under ``work``; returns its K1, K2 and K5 launches."""
+    import contextlib
+    import io
+
+    from gs2pc_torch import bench
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith("GS2PC_BENCH_")}
+    env.update(GS2PC_BENCH_PSNR_GAUSS=str(N_ORACLE_GAUSSIANS),
+               GS2PC_CACHE_DIR=os.path.join(work, "cache"),
+               GS2PC_BENCH_DIR=os.path.join(work, "capture"))
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, env, clear=True), contextlib.redirect_stdout(out):
+        rc = bench.main()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    records = [json.loads(line) for line in out.getvalue().splitlines() if line.startswith("{")]
+    if not records:
+        fail(f"the bench printed no record (exit {rc}): {out.getvalue()[-2000:]}")
+    rec = records[-1]
+    print(f"bench: {json.dumps(rec)}", flush=True)
+    print(f"bench: {len(records)} records, exit {rc}, {wall:.1f}s in all; launches {launches}",
+          flush=True)
+    if rc != 0:
+        fail(f"the bench exited {rc}")
+    n_cams = 45
+    if f"{n_cams}cam@{E2E_WIDTH}x{E2E_HEIGHT}" not in rec["metric"] or rec["steady"] is not True:
+        fail(f"bench: not a steady run of the {n_cams}-camera cell: {rec['metric']}, "
+             f"steady {rec['steady']}")
+    n_file = read_ply_count(os.path.join(work, "capture", "cloud.ply"))
+    if rec["points"] != n_file or abs(n_file - N_POINTS) > 0.01 * N_POINTS:
+        fail(f"bench: {rec['points']} points in the record, {n_file} in the PLY, "
+             f"for a budget of {N_POINTS}")
+    if (rec["blend"], rec["sampler"], rec["writer"]) != ("cuda", "k5", "native_stream"):
+        fail(f"bench: blend {rec['blend']}, sampler {rec['sampler']}, writer {rec['writer']}")
+    if not (rec.get("psnr_gate_pass") is True and rec.get("psnr_oracle_coverage") == 1.0
+            and rec["acc_contrib_relerr"] <= bench.ACC_RELERR_GATE
+            and rec["acc_surf_underrun"] <= 0.0 and rec["acc_surf_bad_finite_frac"] <= 0.0):
+        fail(f"bench: the gate did not pass whole: {rec}")
+    # Two conversions (one K1 and two K2 a camera, one K5 each), then the
+    # gate's one tile render.
+    want = {"blend_tiles": 2 * n_cams + 1, "duplicate_with_keys": 2 * 2 * n_cams + 2,
+            "sample_points": 2}
+    if launches != want:
+        fail(f"bench: kernel launches {launches}, expected {want}")
+    return launches
+
+
 def phase_forensics(device, work, oracle):
     """pixel_forensics on the oracle phase's tile and oracle images (200k
     Gaussians, 1280x720): the float64 truth at the 12 worst pixels."""
@@ -2292,6 +2352,14 @@ def main() -> int:
     os.makedirs(work)
     try:
         phase_forensics(device, work, oracle)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    work = os.path.join(REPO, "build", "chip_smoke_bench")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        for name, n in phase_bench(work).items():
+            launches[name] += n
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

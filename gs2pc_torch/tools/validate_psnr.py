@@ -66,12 +66,7 @@ def capture_scene(n: int, seed: int, device) -> Gaussians:
 
 def capture_cameras(n_cams: int, width: int, height: int, device, masks: bool = False):
     """The capture's orbit cameras, with its vignette masks on request."""
-    transforms, intr = capture.make_poses(n_cams, width, height)
-    m = None
-    if masks:
-        v = capture.vignette_mask(width, height)
-        m = {name: v for name in transforms}
-    return build_camera_batch(transforms, intr, masks=m, device=device)
+    return capture.make_cameras(n_cams, width, height, with_masks=masks, device=device)[0]
 
 
 def tile_config(width_pad: int, height_pad: int, production: bool, run_cap: int = 4096):

@@ -1,12 +1,14 @@
-"""The synthetic capture the chip smoke test converts: a 3DGS scene with
-capture statistics, orbit camera poses, vignette masks, and the on-disk
-files (scene .ply, transforms.json, PNG masks) the CLI reads.
+"""The synthetic capture the port's bench and chip smoke test convert: a
+3DGS scene with capture statistics (or the legacy Gaussian ball), orbit
+camera poses, vignette masks, the camera batch, and the on-disk files
+(scene .ply, transforms.json, PNG masks) the CLI reads.
 
 The port's copy of the capture helpers of the JAX package's ``bench.py``
-(``make_scene_arrays``' "capture" kind, ``make_poses``,
-``vignette_mask``, ``write_scene_ply``, ``write_capture``): the same
+(``make_ball_scene_arrays``, ``make_scene_arrays`` with its ``kind`` and
+``GS2PC_BENCH_SCENE=capture|ball``, ``make_poses``, ``vignette_mask``,
+``make_cameras``, ``write_scene_ply``, ``write_capture``): the same
 arrays from the same seed, pinned by tests/test_torch_io_copies.py.  numpy
-only, plus PIL for the masks.
+only, plus PIL for the masks and the port's camera module for the batch.
 """
 
 from __future__ import annotations
@@ -29,8 +31,43 @@ class SceneArrays(NamedTuple):
     opacities: np.ndarray
 
 
-def make_scene_arrays(n, seed=0) -> SceneArrays:
-    """The capture scene: capture statistics, not a worst-case ball.
+SCENE_KINDS = ("capture", "ball")
+
+
+def make_ball_scene_arrays(n, seed=0) -> SceneArrays:
+    """The legacy bench scene: a dense Gaussian ball every camera fully sees.
+
+    Pathological by capture standards: every camera's frustum contains all
+    n Gaussians and per-tile depth runs saturate the per-tile cap, so it
+    stresses the per-pair machinery ~3x harder than a MipNeRF360-style
+    capture.  Selected by ``kind="ball"`` (GS2PC_BENCH_SCENE=ball) as a
+    worst-case stress config."""
+    r = np.random.default_rng(seed)
+    quats = r.normal(size=(n, 4)).astype(np.float32)
+    quats /= np.linalg.norm(quats, axis=1, keepdims=True)
+    xyz = r.normal(size=(n, 3)).astype(np.float32)
+    xyz *= (1.0 + 2.0 * r.uniform(size=(n, 1)).astype(np.float32) ** 4)
+    log_scales = r.uniform(-6.5, -4.0, (n, 3)).astype(np.float32)
+    big = r.uniform(size=n) < 0.1
+    log_scales[big] = r.uniform(-4.0, -2.5, (big.sum(), 3)).astype(np.float32)
+    return SceneArrays(
+        xyz, log_scales, quats,
+        r.uniform(0, 1, (n, 3)).astype(np.float32),
+        r.uniform(0.2, 1.0, n).astype(np.float32),
+    )
+
+
+def scene_kind(kind=None) -> str:
+    """``kind``, or GS2PC_BENCH_SCENE (default "capture"); one of SCENE_KINDS."""
+    kind = kind or os.environ.get("GS2PC_BENCH_SCENE", "capture")
+    if kind not in SCENE_KINDS:
+        raise ValueError(f"unknown scene kind {kind!r}; one of {SCENE_KINDS}")
+    return kind
+
+
+def make_scene_arrays(n, seed=0, kind=None) -> SceneArrays:
+    """The bench scene of ``kind`` (scene_kind): by default the capture
+    scene, capture statistics, not a worst-case ball.
 
     Models a trained MipNeRF360-style export the way the reference is
     actually run (README.md:104-109): splats concentrated on surfaces
@@ -40,6 +77,8 @@ def make_scene_arrays(n, seed=0) -> SceneArrays:
     per-tile depth runs stay in the hundreds-to-low-thousands — matching
     real captures, where a 720p view of a 3M-splat scene expands to
     single-digit-millions of splat-tile pairs, not tens of millions."""
+    if scene_kind(kind) == "ball":
+        return make_ball_scene_arrays(n, seed)
     r = np.random.default_rng(seed)
     n_ground = int(n * 0.42)
     n_obj = int(n * 0.34)
@@ -139,6 +178,21 @@ def vignette_mask(width, height):
         + ((ys - height / 2) / (height * 0.55)) ** 2
     )
     return (e <= 1.0).astype(np.uint8)
+
+
+def make_cameras(n_cams, width, height, focal_scale=0.9, with_masks=False, *, device):
+    """The orbit cameras as a camera.CameraBatch on ``device``, with the
+    vignette masks on request; returns (batch, padded width, padded
+    height), as the JAX bench's make_cameras."""
+    from gs2pc_torch.camera import build_camera_batch
+
+    transforms, intr = make_poses(n_cams, width, height, focal_scale)
+    masks = None
+    if with_masks:
+        m = vignette_mask(width, height)
+        masks = {name: m for name in transforms}
+    batch = build_camera_batch(transforms, intr, masks=masks, device=device)
+    return batch, batch.width_pad, batch.height_pad
 
 
 def write_scene_ply(path, scene):

@@ -365,6 +365,28 @@ def test_conversion_on_card(cuda, tmp_path):
     assert abs(cloud.total - ref.cloud.total) <= 0.001 * ref.cloud.total
 
 
+def test_bench_on_card(cuda, tmp_path, monkeypatch, capsys):
+    """The port's bench at a tiny size on the card: exit 0, K1 and K5 ran
+    (blend "cuda", sampler "k5"), the card named with its power limit."""
+    import json
+
+    from gs2pc_torch import bench
+
+    for key, value in dict(GS2PC_BENCH_GAUSSIANS="256", GS2PC_BENCH_POINTS="4000",
+                           GS2PC_BENCH_CAMERAS="2", GS2PC_BENCH_WIDTH="64",
+                           GS2PC_BENCH_HEIGHT="48", GS2PC_BENCH_PSNR_GAUSS="256",
+                           GS2PC_CACHE_DIR=str(tmp_path / "cache"),
+                           GS2PC_BENCH_DIR=str(tmp_path / "bench")).items():
+        monkeypatch.setenv(key, value)
+    monkeypatch.delenv("GS2PC_BENCH_DEVICE", raising=False)
+    monkeypatch.delenv("GS2PC_BENCH_SCENE", raising=False)
+    assert bench.main() == 0
+    rec = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert (rec["blend"], rec["sampler"], rec["steady"]) == ("cuda", "k5", True)
+    assert rec["device"] == f"gpu:{torch.cuda.get_device_name(0)}" and rec["power_limit"]
+    assert rec["peak_device_bytes"] > 0 and rec["psnr_gate_pass"] is True
+
+
 @pytest.mark.parametrize("kind", ["ones", "uniform"])
 def test_probe_op_kernel_matches_twin(cuda, kind):
     """K3, every op: launched once each, equal to the twin (bit for bit

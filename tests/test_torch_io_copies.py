@@ -171,12 +171,22 @@ def test_native_writer_matches_jax_bytes(tmp_path, with_normals):
     assert ours.read_bytes() == theirs.read_bytes()
 
 
-def test_capture_helpers_match_bench(tmp_path):
+def test_capture_helpers_match_bench(tmp_path, monkeypatch):
+    monkeypatch.delenv("GS2PC_BENCH_SCENE", raising=False)
     a, b = capture.make_scene_arrays(2000), bench.make_scene_arrays(2000, kind="capture")
-    for name in capture.SceneArrays._fields:
-        got, want = getattr(a, name), getattr(b, name)
-        assert got.dtype == want.dtype
-        np.testing.assert_array_equal(got, want)
+    pairs = [(a, b), (capture.make_scene_arrays(2000, seed=3, kind="ball"),
+                      bench.make_scene_arrays(2000, seed=3, kind="ball")),
+             (capture.make_ball_scene_arrays(500), bench.make_ball_scene_arrays(500))]
+    monkeypatch.setenv("GS2PC_BENCH_SCENE", "ball")
+    pairs.append((capture.make_scene_arrays(700, seed=1), bench.make_scene_arrays(700, seed=1)))
+    with pytest.raises(ValueError, match="unknown scene kind"):
+        capture.make_scene_arrays(10, kind="file:scene.ply")
+    monkeypatch.delenv("GS2PC_BENCH_SCENE")
+    for ours, theirs in pairs:
+        for name in capture.SceneArrays._fields:
+            got, want = getattr(ours, name), getattr(theirs, name)
+            assert got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want)
     assert capture.make_poses(5, 64, 48) == bench.make_poses(5, 64, 48)
     np.testing.assert_array_equal(capture.vignette_mask(64, 48), bench.vignette_mask(64, 48))
     transforms, intr = capture.make_poses(2, 64, 48)

@@ -161,8 +161,8 @@ def test_port_never_imports_jax(capture, tmp_path):
     """CPU conversions, one with the depth-slab sweep on two devices (two
     processes joined by parallel/launch.py and parallel/group.py) and the
     PLY write, one with --sh_colour_eval --generate_mesh --save_sweep then
-    the cleaning and the mesh, load no JAX, no bench harness and no module
-    of gs2pc/."""
+    the cleaning and the mesh, and the port's bench's run_e2e, load no JAX,
+    no bench harness of the JAX package and no module of gs2pc/."""
     script = textwrap.dedent(f"""
         import sys
         import gs2pc_torch.cli
@@ -190,6 +190,12 @@ def test_port_never_imports_jax(capture, tmp_path):
                              {str(tmp_path / 'mesh.ply')!r}, depth=5, laplacian_iters=2,
                              device="cpu")
         assert len(mesh.faces) > 0, mesh
+        from gs2pc_torch import bench
+        run = bench.run_e2e({capture['ply']!r}, {capture['transforms']!r}, {capture['masks']!r},
+                            GaussPointCloudSettings(num_points=5000, colour_resolution=None,
+                                                    quiet=True, surface_distance_std=1e6),
+                            {str(tmp_path / 'bench.ply')!r}, "cpu")
+        assert run["n_points"] > 0 and run["blend"] == "torch", run
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "bench", "gs2pc"))
         assert not bad, bad
