@@ -26,7 +26,8 @@ Phases (each prints one line or more; any failure exits non-zero):
                cards this and every later CLI phase sweeps one process per
                card, and the launches checked are those of every rank (K5
                once a sampling on every rank: 1 a card here, 2 with
-               --generate_mesh); point_sampling beside the sampler's before K5
+               --generate_mesh; K6 once a camera, never its twin);
+               point_sampling beside the sampler's before K5
   7. timing    K1 and K2 on camera 0 of that scene, the shape the main path
                gives them: held against their twins with the bounds of
                phases 3-4 (K2 before and after the sort), then timed against
@@ -132,14 +133,24 @@ Phases (each prints one line or more; any failure exits non-zero):
                steady, on one card), its gate at the oracle phase's 200k
                Gaussians with a fresh oracle cache: exit 0, steady, the points
                written, the gate passed at coverage 1.0 with the accumulators
-               inside their gates, K1 91, K2 182 and K5 2 launches; its last
-               record printed as "bench: {...}"
+               inside their gates, K1 91, K2 182, K5 2 and K6 91 launches (and
+               K6 without a table for the gate's oracle); its last record
+               printed as "bench: {...}"
+ 26. K6        (run right after 7) the per-camera front end on camera 0 of
+               the e2e scene (3M Gaussians, 1280x720, its mask): both radius
+               modes and both table layouts, and preprocess without a table,
+               every output equal to the twin's (preprocess_torch +
+               pack_blend_table on the card) bit for bit; the main path's
+               call (full rect, compact) and the table-less one timed launch
+               alone and through the wrapper beside the twin and k6_bound
+Every CLI phase also fails if K6's twin ran (a card's conversion launches K6
+once a camera, beside K1).
 The line before the last is the kernels' JSON record (max_abs_err at the
-shape of phases 7-8 and 10 (K5: phase 7's); ms the time through the wrapper, also given as
+shape of phases 7-8 and 10 (K5: phase 7's, K6: phase 26's); ms the time through the wrapper, also given as
 wrapper_ms, and launch_ms the launch alone, K2's count + write; K3 as the
 mean of its nine ops and apart for roll and scan, the ops one PyTorch call
 computes (library_ms: torch.roll, torch.cumprod); launches from the e2e run
-and the bench phase for the main mode, K2 and K5, from the depth-slab sweep
+and the bench phase for the main mode, K2, K5 and K6, from the depth-slab sweep
 of phase 9 for the others and from the probe tools' run of phase 10 for
 K3 / K4), the last line the device record.
 """
@@ -230,6 +241,20 @@ PARENT_TRANSFER_PHASES = {"scene_parse": 0.733, "scene_upload": None, "point_sam
 # K5 vs its twin: the same float operations in the same order, with the
 # libm functions PyTorch's CUDA kernels call (csrc/sampler.cu).
 TOL_K5 = 0.0
+
+# K6's operations per Gaussian (chip_smoke.k6_bound), each float or integer
+# instruction one operation at the fp32 rate, libm calls as K5_LIBM_OPS
+# (logf counted as log1pf): the view and clip rows 36 (4 rows of 3
+# multiplies and 3 adds, 18 each for view and clip: rows 0-2 of the view,
+# 0, 1 and 3 of the clip), 1 / w and the NDC and pixel maps 19, tz 3, the
+# clamped tx / ty 22, the rotated factor 45, 1 / z and J's terms 16, the two
+# rows of M2 18, cov2D and its dilation 17, det, its inverse and the conic
+# 17, the eigenvalue 13, the opacity's log 18, r_alpha 6, the two radii
+# 17, the four tile indices 36, tiles_touched 3, valid 5; the compact row
+# adds 20 (three clamped, scaled, rounded channels, their shifts and ors,
+# the float cast).
+K6_OPS = 291
+K6_COMPACT_OPS = 20
 
 # K3 / K4 vs their twins: the sums run in another order in K3 (warp
 # shuffles) than in its twin; K4 and its twin make the same operations, so
@@ -565,6 +590,7 @@ def check_cloud(result, out: str, label: str) -> int:
 
 def reset_launches() -> None:
     from gs2pc_torch.ops import blend_kernel as B
+    from gs2pc_torch.ops import projection as PJ
     from gs2pc_torch.ops import rasterize as R
     from gs2pc_torch.ops import sampler as S
     from gs2pc_torch.parallel import launch
@@ -572,19 +598,26 @@ def reset_launches() -> None:
     B.blend_tiles.launches = 0
     R.duplicate_with_keys.launches = 0
     S.sample_points.launches = 0
+    PJ.project_and_pack.launches = 0
+    PJ.preprocess.launches = 0
+    PJ.preprocess_torch.calls = 0
     launch.RANK_LAUNCHES.clear()
 
 
 def read_launches() -> dict:
-    """K1's, K2's and K5's launches since reset_launches(), this process's
-    and those of the ranks it spawned (one process per card of a multi-card
-    conversion) together."""
+    """K1's, K2's, K5's and K6's launches since reset_launches(), this
+    process's and those of the ranks it spawned (one process per card of a
+    multi-card conversion) together (K6's: "project_and_pack" with its
+    table, "preprocess" without); and this process's calls of K6's twin
+    ("preprocess_torch")."""
+    from gs2pc_torch.ops import projection as PJ
     from gs2pc_torch.parallel import launch
 
     total = launch.kernel_launches()
     for counts in launch.RANK_LAUNCHES.values():
         for name in total:
             total[name] += counts[name]
+    total["preprocess_torch"] = PJ.preprocess_torch.calls
     return total
 
 
@@ -607,10 +640,12 @@ def cli_ranks(sweeps: bool = True) -> int:
 
 
 def conversion_launches(n_cams: int, samplings: int, sweeps: bool = True) -> dict:
-    """K1, K2 and K5 launches of a CLI conversion over all its ranks: one K1
-    and two K2 a camera, one K5 a sampling on every rank."""
+    """K1, K2, K5 and K6 launches of a CLI conversion over all its ranks: one
+    K1, two K2 and one K6 (with its table) a camera, one K5 a sampling on
+    every rank; no K6 without a table and no call of K6's twin."""
     return {"blend_tiles": n_cams, "duplicate_with_keys": 2 * n_cams,
-            "sample_points": samplings * cli_ranks(sweeps)}
+            "sample_points": samplings * cli_ranks(sweeps), "project_and_pack": n_cams,
+            "preprocess": 0, "preprocess_torch": 0}
 
 
 def e2e_argv(ply, tj, mask_dir, out, n_points=None):
@@ -941,6 +976,20 @@ def k5_bound(n_gaussians: int, n_points: int, drawn: int, owners: int, layout: d
     return _bound(48 * n_gaussians + 20 * n_points, ops)
 
 
+def k6_bound(n_gaussians: int, lanes: int):
+    """(bound_ms, bound_by) of one K6 call over ``n_gaussians`` with a table
+    of ``lanes`` lanes (0: preprocess alone).  Bytes, each read or written
+    once: the mean, the factor, the opacity and the alive flag (53 B a
+    Gaussian), with a table the colour (12 B); the Preprocessed fields that
+    are not inputs (depth, xy, conic, the three radii: 36 B; the rects and
+    tiles_touched: 20 B; valid: 1 B) and the row (4 B a lane); the camera's
+    two matrices and four scalars (144 B) once.  Operations: K6_OPS a
+    Gaussian, K6_COMPACT_OPS more for a compact row."""
+    per = 53 + 57 + (12 + 4 * lanes if lanes else 0)
+    ops = K6_OPS + (K6_COMPACT_OPS if lanes == 8 else 0)
+    return _bound(per * n_gaussians + 144, ops * n_gaussians)
+
+
 def _bound(n_bytes: int, n_ops: int):
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = n_ops / FP32_FLOPS_PER_S
@@ -1028,6 +1077,113 @@ def phase_k5(device, arrays):
           f"{ms['bound_all_draw'][0]:.4f} ms, {ms['bound_all_draw'][0] / ms['launch_ms']:.1%}); "
           f"{layout['ctas']} CTAs of tiles of {layout['tile']} slots, {layout['table_levels']} "
           f"table levels; ptxas: {ms['ptxas']}", flush=True)
+    return ms
+
+
+def k6_twin(means, factors, opacities, alive, colours, cam, cfg, adaptive):
+    """K6's plain twin: preprocess_torch + pack_blend_table."""
+    from gs2pc_torch.ops import projection as PJ
+    from gs2pc_torch.ops import rasterize as R
+
+    prep = PJ.preprocess_torch(means, factors, opacities, alive, cam, adaptive)
+    return prep, R.pack_blend_table(prep, colours, compact=cfg.compact)
+
+
+def k6_differ(a, b) -> dict:
+    """{field: elements that differ bit for bit} between two (Preprocessed,
+    table) results (floats compared as their int32 bits: NaNs and signed
+    zeros count), and the largest |a - b| over the finite pairs."""
+    import torch
+
+    out, err = {}, 0.0
+    for name, x, y in zip(list(a[0]._fields) + ["table"], list(a[0]) + [a[1]],
+                          list(b[0]) + [b[1]]):
+        if x is None or y is None:
+            if (x is None) != (y is None):
+                out[name] = -1
+            continue
+        x, y = x.contiguous(), y.contiguous()
+        if x.shape != y.shape or x.dtype != y.dtype:
+            out[name] = -1
+            continue
+        bits = (x.view(torch.int32), y.view(torch.int32)) if x.is_floating_point() else (x, y)
+        n = int((bits[0] != bits[1]).sum())
+        if n:
+            out[name] = n
+        both = torch.isfinite(x.double()) & torch.isfinite(y.double())
+        if both.any():
+            err = max(err, float((x.double() - y.double())[both].abs().max()))
+    return out, err
+
+
+def phase_k6(device, arrays):
+    """K6 at the e2e cell's width: camera 0 of the e2e scene (3M Gaussians,
+    1280x720, its mask), both radius modes, both table layouts and the
+    table-less preprocess, held to its twin run on the card bit for bit;
+    then timed, launch alone and through the wrapper, beside the twin and
+    the bound: the main path's call (full rect for the surface pass,
+    compact) and the table-less one."""
+    import torch
+
+    from gs2pc_torch.ops import cuda_build
+    from gs2pc_torch.ops import projection as PJ
+    from gs2pc_torch.ops import rasterize as R
+    from gs2pc_torch.tools.bench_kernels import K6_ENTRY, kernel_ptxas, launch_ms
+
+    g = scene_on_device(arrays, device)
+    cams = camera_batch(1, E2E_WIDTH, E2E_HEIGHT, device, with_masks=True)
+    cam = cams.at(0)
+    gauss = (g.xyz, g.covariance_factors(), g.opacities, g.keep_mask)
+    P = g.num_gaussians
+    label = f"camera 0 of the e2e scene ({P} Gaussians, {E2E_WIDTH}x{E2E_HEIGHT})"
+    err, seen = 0.0, []
+    for adaptive in (False, True):
+        for compact in (True, False):
+            cfg = R.TileConfig(width_pad=cams.width_pad, height_pad=cams.height_pad,
+                               compact=compact)
+            k = PJ.project_and_pack(*gauss, g.colours, cam, cfg, adaptive)
+            t = k6_twin(*gauss, g.colours, cam, cfg, adaptive)
+            alone = PJ.preprocess(*gauss, cam, adaptive)
+            torch.cuda.synchronize()
+            mode = f"{'adaptive' if adaptive else 'full rect'}, {'compact' if compact else 'wide'}"
+            bad, e = k6_differ(k, t)
+            bad_alone, _ = k6_differ((alone, None), (t[0], None))
+            if bad or bad_alone:
+                fail(f"K6 vs twin, {label}, {mode}: differing elements {bad}, without the "
+                     f"table {bad_alone}")
+            err = max(err, e)
+            seen.append(f"{mode} ({int(k[0].valid.sum())} valid)")
+            del k, t, alone
+    print(f"K6 vs twin, {label}: every field and the table equal bit for bit in {seen}, and "
+          f"without the table; max |err| {err}", flush=True)
+
+    cfg = R.TileConfig(width_pad=cams.width_pad, height_pad=cams.height_pad, compact=True)
+
+    def k6():
+        return PJ.project_and_pack(*gauss, g.colours, cam, cfg, False)
+
+    def k6_alone():
+        return PJ.preprocess(*gauss, cam, False)
+
+    ms = dict(
+        launch_ms=launch_ms(k6, [K6_ENTRY], 20)[K6_ENTRY],
+        wrapper_ms=cuda_ms(k6, 20),
+        plain_ms=cuda_ms(lambda: k6_twin(*gauss, g.colours, cam, cfg, False), 5),
+        bound=k6_bound(P, 8),
+        alone_launch_ms=launch_ms(k6_alone, [K6_ENTRY], 20)[K6_ENTRY],
+        alone_wrapper_ms=cuda_ms(k6_alone, 20),
+        alone_plain_ms=cuda_ms(lambda: PJ.preprocess_torch(*gauss, cam, False), 5),
+        alone_bound=k6_bound(P, 0), max_abs_err=err,
+        ptxas=kernel_ptxas(cuda_build.BUILD_INFO.get("log", ""), "project_pack_kernel")
+        or "the library was built before this run",
+    )
+    print(f"timing, K6, {label}, the main path's call (full rect, compact table): launch "
+          f"alone {ms['launch_ms']:.4f} ms, through the wrapper {ms['wrapper_ms']:.4f} ms, twin "
+          f"{ms['plain_ms']:.3f} ms, bound {ms['bound'][0]:.4f} ms ({ms['bound'][1]}), "
+          f"{ms['bound'][0] / ms['launch_ms']:.1%} of the bound; without the table: alone "
+          f"{ms['alone_launch_ms']:.4f} ms, through the wrapper {ms['alone_wrapper_ms']:.4f} ms, "
+          f"twin {ms['alone_plain_ms']:.3f} ms, bound {ms['alone_bound'][0]:.4f} ms "
+          f"({ms['alone_bound'][1]}); ptxas: {ms['ptxas']}", flush=True)
     return ms
 
 
@@ -1433,8 +1589,10 @@ def phase_dense_cli(device, work):
                      + ["--renderer_type", "dense", "--profile_dir", prof])
     wall = time.perf_counter() - t0
     dense_launches = read_launches()
-    if dense_launches["blend_tiles"] != 0 or dense_launches["sample_points"] != cli_ranks():
-        fail(f"the dense CLI launched {dense_launches}: K1 none, K5 {cli_ranks()} expected")
+    if (dense_launches["blend_tiles"] != 0 or dense_launches["sample_points"] != cli_ranks()
+            or dense_launches["preprocess"] < 1 or dense_launches["preprocess_torch"]):
+        fail(f"the dense CLI launched {dense_launches}: K1 none, K5 {cli_ranks()}, K6 "
+             f"without a table, never its twin, expected")
     n_dense = check_cloud(dense, os.path.join(work, "dense.ply"), "dense CLI")
     trace = os.path.join(prof, cli.TRACE_NAME)
     if not os.path.exists(trace):
@@ -1706,6 +1864,8 @@ def phase_auto_capacity(device, work, ply, tj, mask_dir):
         "--auto_capacity"])
     wall = time.perf_counter() - t0
     launches = read_launches()
+    if launches["project_and_pack"] != launches["blend_tiles"] or launches["preprocess_torch"]:
+        fail(f"--auto_capacity: launches {launches}: one K6 a K1, never its twin, expected")
     attempts, rest = divmod(launches["blend_tiles"], n_cams)
     _, material = truncation_material(result.sweep_diag)
     pairs, _, cap_drop, cap_live = result.sweep_diag
@@ -1771,10 +1931,12 @@ def phase_covariances(device):
 
 
 def launched() -> dict:
-    """K1, K2 and K5 launches since reset_launches()."""
+    """K1, K2, K5 and K6 launches since reset_launches() (K6 with its
+    table; "K6 alone" without), and the calls of K6's twin."""
     got = read_launches()
     return {"K1": got["blend_tiles"], "K2": got["duplicate_with_keys"],
-            "K5": got["sample_points"]}
+            "K5": got["sample_points"], "K6": got["project_and_pack"],
+            "K6 alone": got["preprocess"], "twin": got["preprocess_torch"]}
 
 
 def phase_preview(device, work, ply, tj):
@@ -1796,7 +1958,8 @@ def phase_preview(device, work, ply, tj):
         "--device", str(device)])
     wall = time.perf_counter() - t0
     launches = launched()
-    want = {"K1": N_PREVIEW_CAMERAS, "K2": 2 * N_PREVIEW_CAMERAS, "K5": 0}
+    want = {"K1": N_PREVIEW_CAMERAS, "K2": 2 * N_PREVIEW_CAMERAS, "K5": 0,
+            "K6": N_PREVIEW_CAMERAS, "K6 alone": 0, "twin": 0}
     if launches != want or len(written) != 2 * N_PREVIEW_CAMERAS:
         fail(f"preview: launches {launches} (expected {want}), {len(written)} files written")
     scene = render_preview.scene_arrays(render_preview.load_gaussians(ply, device=device))
@@ -1937,8 +2100,10 @@ def phase_splits(device, arrays):
     for label, sweep, devices in splits:
         runs = [timed(sweep, scene, cams, cfg, devices) for _ in range(2)]
         for acc, _, launches in runs:
-            if launches["K1"] != want_k1[label] or launches["K2"] < 1:
-                fail(f"splits, {label}: launches {launches}, expected K1 {want_k1[label]}")
+            if (launches["K1"] != want_k1[label] or launches["K2"] < 1
+                    or launches["K6"] != launches["K1"] or launches["twin"]):
+                fail(f"splits, {label}: launches {launches}, expected K1 and K6 "
+                     f"{want_k1[label]}, never K6's twin")
         acc = runs[0][0]
         if not same_bits(acc, runs[1][0]):
             fail(f"splits, {label}: the accumulators differ between two runs")
@@ -2120,7 +2285,8 @@ def spmd_cli(device, e2e, work, n_cards: int) -> dict:
         wall = time.perf_counter() - t0
         phases = {k: round(v, 4) for k, v in log.PHASE_SECONDS.items()}
         launches, by_rank = launched(), launches_by_rank()
-        want = {"K1": want_k1, "K2": 2 * want_k1, "K5": n_cards}
+        want = {"K1": want_k1, "K2": 2 * want_k1, "K5": n_cards, "K6": want_k1,
+                "K6 alone": 0, "twin": 0}
         if launches != want or len(by_rank) != n_cards:
             fail(f"spmd CLI {label}: launches {launches} over {len(by_rank)} ranks "
                  f"{by_rank}, expected {want} over {n_cards}")
@@ -2187,7 +2353,7 @@ def phase_dryrun(device):
         verdicts = dryrun_multichip(n, dev)
         wall = time.perf_counter() - t0
         launches = launched()
-        if launches["K1"] < 1 or launches["K2"] < 1:
+        if launches["K1"] < 1 or launches["K2"] < 1 or launches["K6"] < 1:
             fail(f"dry run on {n} x {dev}: launches {launches}")
         print(f"dry run on {n} x {dev}: {len(verdicts)} axes OK in {wall:.3f}s; launches "
               f"{launches}", flush=True)
@@ -2236,12 +2402,14 @@ def phase_bench(work) -> dict:
             and rec["acc_contrib_relerr"] <= bench.ACC_RELERR_GATE
             and rec["acc_surf_underrun"] <= 0.0 and rec["acc_surf_bad_finite_frac"] <= 0.0):
         fail(f"bench: the gate did not pass whole: {rec}")
-    # Two conversions (one K1 and two K2 a camera, one K5 each), then the
-    # gate's one tile render.
+    # Two conversions (one K1, two K2 and one K6 a camera, one K5 each), then
+    # the gate's one tile render; the gate's oracle launches K6 without a
+    # table, once a band.
     want = {"blend_tiles": 2 * n_cams + 1, "duplicate_with_keys": 2 * 2 * n_cams + 2,
-            "sample_points": 2}
-    if launches != want:
-        fail(f"bench: kernel launches {launches}, expected {want}")
+            "sample_points": 2, "project_and_pack": 2 * n_cams + 1, "preprocess_torch": 0}
+    if {k: launches[k] for k in want} != want or launches["preprocess"] < 1:
+        fail(f"bench: kernel launches {launches}, expected {want} and K6 without a table "
+             f"for the oracle")
     return launches
 
 
@@ -2329,6 +2497,7 @@ def main() -> int:
         phase_convert(work, e2e["ply"])
         ms, bounds, k1_err = phase_timing(device, arrays)
         k5 = phase_k5(device, arrays)
+        k6 = phase_k6(device, arrays)
         slab = phase_slab(device, arrays)
         launches.update(phase_sharded(device, arrays))
         splits = phase_splits(device, arrays)
@@ -2396,6 +2565,9 @@ def main() -> int:
         entry("sample_points", "gs2pc_torch/csrc/sampler.cu", "gs2pc/ops/sampler.py:149",
               launches["sample_points"], k5["max_abs_err"], k5["wrapper_ms"], k5["plain_ms"],
               k5["bound"], k5["launch_ms"]),
+        entry("project_and_pack", "gs2pc_torch/csrc/project.cu", "gs2pc/ops/projection.py:47",
+              launches["project_and_pack"], k6["max_abs_err"], k6["wrapper_ms"],
+              k6["plain_ms"], k6["bound"], k6["launch_ms"]),
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

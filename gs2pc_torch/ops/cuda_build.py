@@ -64,6 +64,9 @@ _SIGNATURES = {
          ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, _P, _P, _P],
     ),
     "gs2pc_sample_points_layout": (_I, [ctypes.c_longlong, _P, _P, _P]),
+    # means, factors, opacities, alive, colours, the camera's six tensors;
+    # P, width, height, adaptive, lanes; the eleven outputs; the stream.
+    "gs2pc_project_pack": (_I, [_P] * 11 + [_I] * 5 + [_P] * 11 + [_P]),
 }
 
 

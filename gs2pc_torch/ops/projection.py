@@ -1,6 +1,14 @@
 """Per-Gaussian camera preprocessing: project, EWA cov2D, conic, tile rect
 (counterpart of gs2pc.ops.projection.preprocess, same formulas in the same
-order; see that module for the derivations and reference citations)."""
+order; see that module for the derivations and reference citations).
+
+The JAX package compiles preprocess and the blend-table pack
+(gs2pc.ops.rasterize.pack_blend_table) into one XLA fusion per camera; here
+both are K6 (gs2pc_torch/csrc/project.cu), one launch a camera on CUDA
+tensors: ``preprocess`` (the Preprocessed fields) and ``project_and_pack``
+(with the table).  ``preprocess_torch`` is K6's plain twin, with
+rasterize.pack_blend_table for the table, and what both run on CPU
+tensors."""
 
 from __future__ import annotations
 
@@ -54,7 +62,117 @@ def preprocess(
     ``adaptive_radius`` shrinks the rect and the circle cull to the radius
     where alpha can still reach 1/255 (exact for the blend); the surface
     pass measures over the full 3-sigma rect, so callers computing surface
-    distances pass False."""
+    distances pass False.  K6 without a table on CUDA tensors,
+    ``preprocess_torch`` on CPU tensors."""
+    dev = means.device
+    if dev.type == "cpu":
+        return preprocess_torch(means, cov_factors, opacities, alive, camera, adaptive_radius)
+    if dev.type != "cuda":
+        raise ValueError(f"preprocess: unsupported device {dev}")
+    return _k6(preprocess, means, cov_factors, opacities, alive, None, camera,
+               adaptive_radius, 0)[0]
+
+
+# K6 launches (without a table); a caller resets it (= 0).
+preprocess.launches = 0
+
+
+def project_and_pack(
+    means: torch.Tensor,
+    cov_factors: torch.Tensor,
+    opacities: torch.Tensor,
+    alive: torch.Tensor,
+    colours: torch.Tensor,
+    camera,
+    cfg,
+    adaptive_radius: bool = True,
+):
+    """``preprocess`` and the camera's blend table (P, 8) or (P, 16)
+    (``cfg.compact``, a rasterize.TileConfig), as the JAX package's
+    render_tile_camera fuses them: one K6 launch on CUDA tensors,
+    ``preprocess_torch`` + rasterize.pack_blend_table on CPU tensors.
+    Returns (Preprocessed, table)."""
+    dev = means.device
+    if dev.type == "cpu":
+        from gs2pc_torch.ops.rasterize import pack_blend_table
+
+        prep = preprocess_torch(means, cov_factors, opacities, alive, camera, adaptive_radius)
+        return prep, pack_blend_table(prep, colours, compact=cfg.compact)
+    if dev.type != "cuda":
+        raise ValueError(f"project_and_pack: unsupported device {dev}")
+    return _k6(project_and_pack, means, cov_factors, opacities, alive, colours, camera,
+               adaptive_radius, 8 if cfg.compact else 16)
+
+
+# K6 launches (with a table); a caller resets it (= 0).
+project_and_pack.launches = 0
+
+
+def _k6(wrapper, means, cov_factors, opacities, alive, colours, camera, adaptive_radius: bool,
+        lanes: int):
+    """One K6 launch on the tensors' card, counted on ``wrapper``: the
+    Preprocessed fields and the table of ``lanes`` lanes (None for 0).  The
+    camera's matrices and intrinsics are read on the card: no host sync."""
+    from gs2pc_torch.ops.cuda_build import check, launch, load_library, stream_ptr
+
+    dev = means.device
+    P = means.shape[0]
+    cam = [camera.viewmatrix, camera.projmatrix, camera.tanfovx, camera.tanfovy,
+           camera.focal_x, camera.focal_y]
+    floats = [means, cov_factors, opacities] + ([colours] if lanes else []) + cam
+    shapes = [(P, 3), (P, 3, 3), (P,)] + ([(P, 3)] if lanes else []) + [(4, 4), (4, 4)]
+    if (any(t.dtype != torch.float32 or t.device != dev for t in floats)
+            or alive.dtype != torch.bool or alive.device != dev or alive.shape != (P,)
+            or any(tuple(t.shape) != s for t, s in zip(floats, shapes))
+            or any(t.numel() != 1 for t in cam[2:])):
+        raise ValueError("K6: float32 means (P, 3), factors (P, 3, 3), opacities (P,), "
+                         "colours (P, 3), a bool alive (P,) and the camera on one card")
+    means, cov_factors, opac, colours = (
+        None if t is None else t.contiguous() for t in (means, cov_factors, opacities, colours))
+    cam = [t.contiguous() for t in cam]
+    flags = alive.contiguous().view(torch.uint8)
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    depth, radius, r_alpha_sq, radius_q = (torch.empty(P, **f32) for _ in range(4))
+    xy, conic = torch.empty(P, 2, **f32), torch.empty(P, 3, **f32)
+    rect_min, rect_max = torch.empty(P, 2, **i32), torch.empty(P, 2, **i32)
+    tiles = torch.empty(P, **i32)
+    valid = torch.empty(P, dtype=torch.uint8, device=dev)
+    table = torch.empty(P, lanes, **f32) if lanes else None
+    lib = load_library()
+    rc = launch(
+        lib.gs2pc_project_pack, means,
+        means.data_ptr(), cov_factors.data_ptr(), opac.data_ptr(), flags.data_ptr(),
+        colours.data_ptr() if lanes else None, *(t.data_ptr() for t in cam),
+        P, camera.width, camera.height, int(adaptive_radius), lanes,
+        depth.data_ptr(), xy.data_ptr(), conic.data_ptr(), radius.data_ptr(),
+        r_alpha_sq.data_ptr(), radius_q.data_ptr(), rect_min.data_ptr(), rect_max.data_ptr(),
+        tiles.data_ptr(), valid.data_ptr(), table.data_ptr() if lanes else None,
+        stream_ptr(means),
+    )
+    wrapper.launches += 1
+    check(rc, "gs2pc_project_pack")
+    prep = Preprocessed(
+        depth=depth, xy=xy, conic=conic, opacity=opacities, radius=radius,
+        r_alpha_sq=r_alpha_sq, radius_q=radius_q, rect_min=rect_min, rect_max=rect_max,
+        tiles_touched=tiles, valid=valid.view(torch.bool),
+    )
+    return prep, table
+
+
+def preprocess_torch(
+    means: torch.Tensor,
+    cov_factors: torch.Tensor,
+    opacities: torch.Tensor,
+    alive: torch.Tensor,
+    camera,
+    adaptive_radius: bool = True,
+) -> Preprocessed:
+    """The plain PyTorch twin of K6's Preprocessed half, eager on any
+    device.  K6 repeats its float operations in this order; the three-term
+    sums of cov2D are written out left to right (equal to ``.sum(-1)`` on
+    the CPU; on the card the reduction's order is ATen's to choose)."""
+    preprocess_torch.calls += 1
     Rv = camera.viewmatrix[:3, :3]
     tv = camera.viewmatrix[:3, 3]
     p_view = affine3(means, Rv, tv)
@@ -82,9 +200,9 @@ def preprocess(
     fx, fy = camera.focal_x, camera.focal_y
     row0 = (fx * inv_z)[:, None] * T0[:, 0, :] - (fx * tx * inv_z * inv_z)[:, None] * T0[:, 2, :]
     row1 = (fy * inv_z)[:, None] * T0[:, 1, :] - (fy * ty * inv_z * inv_z)[:, None] * T0[:, 2, :]
-    cov_a = (row0 * row0).sum(-1)
-    cov_b = (row0 * row1).sum(-1)
-    cov_c = (row1 * row1).sum(-1)
+    cov_a = _sum3(row0 * row0)
+    cov_b = _sum3(row0 * row1)
+    cov_c = _sum3(row1 * row1)
     cov_a = cov_a + H_VAR
     cov_c = cov_c + H_VAR
     det = cov_a * cov_c - cov_b * cov_b
@@ -128,6 +246,15 @@ def preprocess(
         tiles_touched=tiles_touched,
         valid=valid,
     )
+
+
+# Calls of the twin (on any device); a caller resets it (= 0).
+preprocess_torch.calls = 0
+
+
+def _sum3(v: torch.Tensor) -> torch.Tensor:
+    """(..., 3) -> (v0 + v1) + v2."""
+    return v[..., 0] + v[..., 1] + v[..., 2]
 
 
 def mark_visible(means: torch.Tensor, viewmatrix: torch.Tensor,

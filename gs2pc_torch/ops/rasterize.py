@@ -1,7 +1,8 @@
 """Tile-binned splat rasterizer (counterpart of gs2pc.ops.rasterize's tile
 path, render_tile_camera).
 
-Per camera: preprocess -> exact pair expansion (K2, CUDA's
+Per camera: preprocess and the blend table (K6, one launch, as the JAX
+package fuses them) -> exact pair expansion (K2, CUDA's
 duplicateWithKeys, on the exclusive cumsum of per-Gaussian tile counts) ->
 stable sort of (tile << 32 | depth bits) int64 keys -> tile ranges by
 searchsorted -> run cap and masked-tile zeroing -> blend (K1, which also
@@ -23,7 +24,7 @@ import torch
 
 from gs2pc_torch.ops.blend import BACKGROUND, TILE, RenderOutput
 from gs2pc_torch.ops.blend_kernel import blend_tiles
-from gs2pc_torch.ops.projection import Preprocessed, preprocess
+from gs2pc_torch.ops.projection import Preprocessed, project_and_pack
 
 # A dropped pair can still matter where a pixel's remaining transmittance
 # exceeds the blend's own alpha cutoff (1/255).
@@ -57,7 +58,8 @@ class TileConfig(NamedTuple):
 
 
 def pack_blend_table(prep: Preprocessed, colours: torch.Tensor, compact: bool = False):
-    """Per-Gaussian blend rows in original order.
+    """Per-Gaussian blend rows in original order (the table half of K6's
+    twin; projection.project_and_pack writes them in K6 on the card).
 
     Full: 16 lanes [x y A B C opacity depth 0 | r g b 0 0 0 0 0].
     Compact: 8 lanes [x y A B C opacity depth rgb24], rgb24 an exact float
@@ -175,15 +177,18 @@ def _tile_max(x: torch.Tensor, cfg: TileConfig) -> torch.Tensor:
 
 
 def blend_inputs(prep: Preprocessed, colours: torch.Tensor, camera, cfg: TileConfig,
-                 calc_surface_distance: bool, **modes):
+                 calc_surface_distance: bool, table: Optional[torch.Tensor] = None, **modes):
     """Everything K1 takes for one camera, and the per-tile run lengths.
+    ``table`` is the camera's blend table when it is already packed
+    (project_and_pack); None packs it from ``prep`` and ``colours``.
 
     Returns (args, kwargs, runs): ``blend_tiles(*args, **kwargs)`` blends
     the camera; ``runs`` are the uncapped per-tile pair counts, zero on
     fully masked tiles (they blend nothing and stay out of the surface
     min).  ``modes`` (init_trans, ed_override, early_stop, bg) pass
     through to K1."""
-    table = pack_blend_table(prep, colours, compact=cfg.compact)
+    if table is None:
+        table = pack_blend_table(prep, colours, compact=cfg.compact)
     keys, gids = duplicate_with_keys(prep, cfg, circle_cull=not calc_surface_distance)
     if gids.numel() >= 2**31:
         # K1 indexes the pair run with 32-bit ints.
@@ -232,12 +237,12 @@ def render_tile_camera(
     with ``white_bkgd=False``.  ``blend`` replaces K1's wrapper
     ``blend_tiles`` (None), as the tools that time or ablate its twin
     ``blend_kernel.blend_tiles_torch`` on the card do."""
-    prep = preprocess(
-        means, cov_factors, opacities, alive, camera,
+    prep, table = project_and_pack(
+        means, cov_factors, opacities, alive, colours, camera, cfg,
         adaptive_radius=not calc_surface_distance,
     )
     args, kwargs, runs = blend_inputs(
-        prep, colours, camera, cfg, calc_surface_distance,
+        prep, colours, camera, cfg, calc_surface_distance, table=table,
         init_trans=init_trans, ed_override=surface_ed_override, early_stop=early_stop,
         bg=BACKGROUND if white_bkgd else 0.0,
     )

@@ -27,7 +27,7 @@ load it.  The other ranks log nothing; each sends its phase seconds
                      spawn until every rank has joined)
 
 Each spawned rank also reports its launches of the conversion's kernels
-(K1, K2 and K5, kernel_launches), which rank 0 adds to RANK_LAUNCHES: the
+(K1, K2, K5 and K6, kernel_launches), which rank 0 adds to RANK_LAUNCHES: the
 wrappers' own counts in this process are rank 0's alone.
 
 A rank that raises fails the run: rank 0 stops every other rank at once
@@ -72,11 +72,13 @@ RANK_LAUNCHES: dict = {}
 def kernel_launches() -> dict:
     """This process's launches of the conversion's kernels, by wrapper
     (each wrapper counts its own launches; see gs2pc_torch.ops)."""
-    from gs2pc_torch.ops import blend_kernel, rasterize, sampler
+    from gs2pc_torch.ops import blend_kernel, projection, rasterize, sampler
 
     return {"blend_tiles": blend_kernel.blend_tiles.launches,
             "duplicate_with_keys": rasterize.duplicate_with_keys.launches,
-            "sample_points": sampler.sample_points.launches}
+            "sample_points": sampler.sample_points.launches,
+            "project_and_pack": projection.project_and_pack.launches,
+            "preprocess": projection.preprocess.launches}
 
 
 class RemoteTraceback(Exception):

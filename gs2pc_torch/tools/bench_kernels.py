@@ -3,9 +3,11 @@ capture scene (3M Gaussians, 1280x720, its vignette mask, surface pass,
 compact tables, run cap 4096) and, for K1's depth-slab modes, slab 1 of 4
 of the same camera, with the inputs the depth-slab sweep gives it; K5 on
 that scene (the PSD clamp applied) at 10M points of quotas by size, key
-PRNGKey(0); and the probes at the tools' shapes: K3 per op on the seeded
-uniform block of cuda_probe, K4 at level 6 on the seeded input of
-cuda_probe2.
+PRNGKey(0); K6, the per-camera front end, on camera 0 of that scene (full
+rect, compact table) beside its twin (a checkout without K6: the eager
+preprocess + pack_blend_table it runs instead); and the probes at the
+tools' shapes: K3 per op on the seeded uniform block of cuda_probe, K4 at
+level 6 on the seeded input of cuda_probe2.
 
 Each kernel is timed two ways with CUDA events, the mean over ``--reps``
 after a warm-up (ten times as many for the probes): through its wrapper
@@ -17,7 +19,7 @@ probes: their kernels' own device time (torch.profiler), the floor (an
 empty kernel's entry point replayed the same way, before and after them),
 and the PyTorch calls that compute K3's roll and scan (torch.roll,
 torch.cumprod), which the port never calls.  ``--gaussians 0`` times the
-probes alone; ``--kernels`` picks which of probes, k1, k2 and k5 run.
+probes alone; ``--kernels`` picks which of probes, k1, k2, k5 and k6 run.
 
     python gs2pc_torch/tools/bench_kernels.py [--root DIR] [--e2e N [--profile]
         [--num_devices N] [--e2e_only]] [--gaussians 3000000] [--kernels k5]
@@ -55,8 +57,9 @@ K3_ENTRY = "gs2pc_probe_op"
 K4_ENTRY = "gs2pc_probe_blend"
 FLOOR_ENTRY = "gs2pc_probe_floor"
 K5_ENTRY = "gs2pc_sample_points"
+K6_ENTRY = "gs2pc_project_pack"
 N_POINTS = 10_000_000
-KERNELS = ("probes", "k1", "k2", "k5")
+KERNELS = ("probes", "k1", "k2", "k5", "k6")
 # K3's ops that one PyTorch call computes (x is the (256, 128) block).
 K3_LIBRARY = {"roll": lambda x: x.roll(4, 1), "scan": lambda x: x.cumprod(1)}
 
@@ -210,6 +213,47 @@ def time_k5(n_gaussians: int, device, reps: int) -> dict:
 
     return {"launch_ms": launch_ms(call, [K5_ENTRY], reps)[K5_ENTRY],
             "wrapper_ms": cuda_ms(call, reps), "points": int(call().points.shape[0])}
+
+
+def time_k6(n_gaussians: int, device, reps: int) -> dict:
+    """The per-camera front end on camera 0 of the capture scene (its mask,
+    full rect for the surface pass, compact table), as the checkout runs it
+    in render_tile_camera: K6 (projection.project_and_pack) launch alone and
+    through the wrapper, and its twin (preprocess_torch + pack_blend_table);
+    in a checkout without K6, the eager preprocess + pack_blend_table it
+    runs instead, as ``wrapper_ms``."""
+    from gs2pc_torch.camera import build_camera_batch
+    from gs2pc_torch.models.gaussians import Gaussians
+    from gs2pc_torch.ops import projection as PJ
+    from gs2pc_torch.ops import rasterize as R
+    from gs2pc_torch.utils import capture
+
+    a = capture.make_scene_arrays(n_gaussians)
+    g = Gaussians.from_numpy(a.xyz, a.log_scales, a.rots, a.colours, a.opacities, device=device)
+    transforms, intr = capture.make_poses(1, 1280, 720)
+    m = capture.vignette_mask(1280, 720)
+    cams = build_camera_batch(transforms, intr, masks={n: m for n in transforms}, device=device)
+    cfg = R.TileConfig(width_pad=cams.width_pad, height_pad=cams.height_pad, compact=True)
+    gauss = (g.xyz, g.covariance_factors(), g.opacities, g.keep_mask)
+    cam = cams.at(0)
+
+    def eager():
+        prep = PJ.preprocess(*gauss, cam, adaptive_radius=False)
+        return R.pack_blend_table(prep, g.colours, compact=True)
+
+    if not hasattr(PJ, "project_and_pack"):
+        return {"wrapper_ms": cuda_ms(eager, reps), "route": "eager"}
+
+    def call():
+        return PJ.project_and_pack(*gauss, g.colours, cam, cfg, False)
+
+    def twin():
+        prep = PJ.preprocess_torch(*gauss, cam, False)
+        return R.pack_blend_table(prep, g.colours, compact=True)
+
+    return {"launch_ms": launch_ms(call, [K6_ENTRY], reps)[K6_ENTRY],
+            "wrapper_ms": cuda_ms(call, reps), "plain_ms": cuda_ms(twin, max(reps // 4, 1)),
+            "route": "k6"}
 
 
 def _device_us(e) -> float:
@@ -485,7 +529,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
            "build_s": time.perf_counter() - t0,
            **{f"{k}_ptxas": kernel_ptxas(log, name) for k, name in (
                ("k1", "blend_tiles_kernel"), ("k3", "probe_op_kernel"),
-               ("k4", "probe_blend_kernel"), ("k5", "sample_points_kernel"))}}
+               ("k4", "probe_blend_kernel"), ("k5", "sample_points_kernel"),
+               ("k6", "project_pack_kernel"))}}
     if "probes" in kernels:
         rec["probes"] = time_probes(device, 10 * args.reps)
     if kernels & {"k1", "k2"}:
@@ -503,6 +548,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         del prep, modes
     if "k5" in kernels:
         rec["k5"] = time_k5(args.gaussians, device, args.reps)
+    if "k6" in kernels:
+        rec["k6"] = time_k6(args.gaussians, device, args.reps)
     if args.e2e and args.gaussians:
         extra = [] if args.num_devices is None else ["--num_devices", str(args.num_devices)]
         rec["cards"] = torch.cuda.device_count()

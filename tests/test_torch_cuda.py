@@ -15,13 +15,18 @@ from gs2pc_torch.camera import build_camera_batch
 from gs2pc_torch.models.gaussians import Gaussians
 from gs2pc_torch.ops import blend_kernel as B
 from gs2pc_torch.ops import prng
+from gs2pc_torch.ops import projection as PJ
 from gs2pc_torch.ops import rasterize as R
 from gs2pc_torch.ops import sampler as S
 from gs2pc_torch.ops.projection import preprocess
 from gs2pc_torch.parallel import mesh
 from gs2pc_torch.utils import capture
 from gs2pc_torch.utils.config import GaussPointCloudSettings, RenderConfig
+from frontend_cases import CASES as K6_CASES
+from frontend_cases import bits_differ, frontend_inputs
 
+# frontend_cases comes from this directory (pytest puts it on sys.path): a
+# GPU machine may have another top-level ``tests`` package installed.
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
 
@@ -896,3 +901,66 @@ def _write_sh_ply(path, a):
                   + "".join(f"property float {p}\n" for p in props)
                   + "end_header\n").encode("ascii"))
         fh.write(rows.tobytes())
+
+
+def _k6_twin(means, factors, opac, alive, colours, cam, cfg, adaptive):
+    prep = PJ.preprocess_torch(means, factors, opac, alive, cam, adaptive)
+    return prep, R.pack_blend_table(prep, colours, compact=cfg.compact)
+
+
+@pytest.mark.parametrize("case", K6_CASES + ("nonfinite",))
+@pytest.mark.parametrize("adaptive", [True, False], ids=["adaptive", "full_rect"])
+@pytest.mark.parametrize("compact", [True, False], ids=["compact", "wide"])
+def test_k6_matches_twin_bit_for_bit(cuda, case, adaptive, compact):
+    """K6 with and without its table against preprocess_torch +
+    pack_blend_table run on the card: every output field bit for bit (NaNs
+    and signed zeros included), one launch a call."""
+    means, factors, opac, alive, colours, cam, batch = frontend_inputs(case, cuda)
+    cfg = R.TileConfig(width_pad=batch.width_pad, height_pad=batch.height_pad, compact=compact)
+    before = (PJ.project_and_pack.launches, PJ.preprocess.launches)
+    got = PJ.project_and_pack(means, factors, opac, alive, colours, cam, cfg, adaptive)
+    alone = PJ.preprocess(means, factors, opac, alive, cam, adaptive)
+    assert (PJ.project_and_pack.launches, PJ.preprocess.launches) == (before[0] + 1,
+                                                                      before[1] + 1)
+    twin = _k6_twin(means, factors, opac, alive, colours, cam, cfg, adaptive)
+    torch.cuda.synchronize()
+    assert got[0].valid.dtype == torch.bool and got[0].rect_min.dtype == torch.int32
+    assert bits_differ(got, twin) == []
+    assert bits_differ((alone, None), (twin[0], None)) == []
+
+
+@pytest.mark.parametrize("adaptive", [True, False], ids=["adaptive", "full_rect"])
+def test_k6_matches_twin_on_the_capture_scene(cuda, adaptive):
+    """At 200k Gaussians of the capture scene, a 1280x720 camera, compact."""
+    a = capture.make_scene_arrays(200_000)
+    g = Gaussians.from_numpy(a.xyz, a.log_scales, a.rots, a.colours, a.opacities, device=cuda)
+    transforms, intr = capture.make_poses(1, 1280, 720)
+    batch = build_camera_batch(transforms, intr, device=cuda)
+    cfg = R.TileConfig(width_pad=batch.width_pad, height_pad=batch.height_pad, compact=True)
+    args = (g.xyz, g.covariance_factors(), g.opacities, g.keep_mask, g.colours, batch.at(0),
+            cfg, adaptive)
+    got = PJ.project_and_pack(*args)
+    twin = _k6_twin(*args)
+    torch.cuda.synchronize()
+    assert int(got[0].valid.sum()) > 1000
+    assert bits_differ(got, twin) == []
+
+
+def test_k6_without_gaussians(cuda):
+    means, factors, opac, alive, colours, cam, batch = frontend_inputs("scene", cuda)
+    cfg = R.TileConfig(width_pad=batch.width_pad, height_pad=batch.height_pad, compact=True)
+    prep, table = PJ.project_and_pack(means[:0], factors[:0], opac[:0], alive[:0],
+                                      colours[:0], cam, cfg)
+    torch.cuda.synchronize()
+    assert table.shape == (0, 8) and prep.xy.shape == (0, 2) and prep.valid.shape == (0,)
+
+
+def test_render_tile_camera_launches_k6_once(cuda):
+    """A render on the card launches K6 once (with its table) and never runs
+    the twin."""
+    means, factors, opac, alive, colours, cam, batch = frontend_inputs("edge", cuda)
+    cfg = R.TileConfig(width_pad=batch.width_pad, height_pad=batch.height_pad, compact=True)
+    before = (PJ.project_and_pack.launches, PJ.preprocess.launches, PJ.preprocess_torch.calls)
+    R.render_tile_camera(means, factors, opac, colours, alive, cam, cfg)
+    after = (PJ.project_and_pack.launches, PJ.preprocess.launches, PJ.preprocess_torch.calls)
+    assert after == (before[0] + 1, before[1], before[2])
