@@ -1,0 +1,6 @@
+"""peak_device_gb: torch.cuda.max_memory_allocated over the window, in GB
+(1e9 bytes); none off a card."""
+
+
+def read(run):
+    return run.peak_bytes / 1e9 if run.peak_bytes > 0 else None
