@@ -690,7 +690,7 @@ def phase_e2e(device, work):
     print(f"e2e: {n_file} points (quota sum {int(result.cloud.counts.sum())}) in {wall:.2f}s, "
           f"{n_file / wall:,.0f} points/s disk to disk; writer {result.writer}; "
           f"launches {launches}; counters [pairs, win_drop, cap_drop, cap_live] = "
-          f"{result.sweep_diag}; max sampled |z| {zmax:.4f}; point_sampling "
+          f"{result.sweep_diag[:4]}; max sampled |z| {zmax:.4f}; point_sampling "
           f"{phases['point_sampling']:.3f}s with K5 (before K5: {PARENT_POINT_SAMPLING_S}s, "
           f"PERF.md §5); phases {json.dumps(phases)}", flush=True)
 
@@ -1868,7 +1868,7 @@ def phase_auto_capacity(device, work, ply, tj, mask_dir):
         fail(f"--auto_capacity: launches {launches}: one K6 a K1, never its twin, expected")
     attempts, rest = divmod(launches["blend_tiles"], n_cams)
     _, material = truncation_material(result.sweep_diag)
-    pairs, _, cap_drop, cap_live = result.sweep_diag
+    pairs, _, cap_drop, cap_live = result.sweep_diag[:4]
     final_cap = AUTO_RUN_CAP << (attempts - 1)
     print(f"--auto_capacity, {n_cams} cameras, --max_pairs_per_tile {AUTO_RUN_CAP}: "
           f"{attempts} sweeps (K1 launches {launches['blend_tiles']} = {n_cams} cameras x "

@@ -178,7 +178,7 @@ def run_e2e(ply, tj, mask_dir, settings, out_path, device) -> dict:
         "t_sample": ph.get("point_sampling", 0.0),
         "t_io": ph.get("ply_write", 0.0),
         "n_points": int(conv.cloud.total),
-        "diag": list(conv.sweep_diag or [0.0, 0.0, 0.0, 0.0]),
+        "diag": (conv.sweep_diag or [0.0, 0.0, 0.0, 0.0])[:4],
         "writer": writer,
         "blend": "cuda" if blend_kernel.blend_tiles.launches > k1 else "torch",
         "sampler": "k5" if S.sample_points.launches > k5 else "torch",

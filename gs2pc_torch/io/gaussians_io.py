@@ -40,71 +40,82 @@ def load_ply_gaussians(path: str, max_sh_degree: int = 3, plane_hook=None):
 
     ``plane_hook(name, array)`` is called the moment each plane is final,
     in the JAX package's order and with its names: xyz, opacities, colours
-    (then shs, for an SH scene), log_scales, rots."""
+    (then shs, for an SH scene), log_scales, rots.
+
+    Spans (utils.log.span): ``ply_read`` the file read into records,
+    ``ply_sh_rest`` the f_rest_* stack into ``shs``, ``ply_columns`` every
+    other plane and the hook calls; the three do not overlap."""
     hook = plane_hook or (lambda name, array: None)
-    vertex = next(iter(read_ply(path).values()))
+    with log.span("ply_read"):
+        vertex = next(iter(read_ply(path).values()))
     names = vertex.property_names
     props = set(names)
-    xyz = np.stack([vertex["x"], vertex["y"], vertex["z"]], axis=1).astype(np.float32)
-    n = xyz.shape[0]
-    hook("xyz", xyz)
+    with log.span("ply_columns"):
+        xyz = np.stack([vertex["x"], vertex["y"], vertex["z"]], axis=1).astype(np.float32)
+        n = xyz.shape[0]
+        hook("xyz", xyz)
 
-    if "opacity" in props:
-        raw = np.asarray(vertex["opacity"], np.float32).reshape(-1)
-        opacities = 1.0 / (1.0 + np.exp(-raw))
-    else:
-        opacities = np.ones(n, np.float32)
-    hook("opacities", opacities)
+        if "opacity" in props:
+            raw = np.asarray(vertex["opacity"], np.float32).reshape(-1)
+            opacities = 1.0 / (1.0 + np.exp(-raw))
+        else:
+            opacities = np.ones(n, np.float32)
+        hook("opacities", opacities)
+
+        if "f_dc_0" in props:
+            f_dc = np.stack(
+                [vertex["f_dc_0"], vertex["f_dc_1"], vertex["f_dc_2"]], axis=1
+            ).astype(np.float32)
+            rest = _sorted_props(names, "f_rest_")
+            expected = 3 * (max_sh_degree + 1) ** 2 - 3
+            if len(rest) != expected:
+                raise ValueError(
+                    f"Expected {expected} f_rest_* properties for sh degree "
+                    f"{max_sh_degree}, found {len(rest)}"
+                )
+            colours = np.clip(SH_C0 * f_dc + 0.5, 0.0, 1.0).astype(np.float32)
+        elif "red" in props:
+            colours = np.stack(
+                [vertex["red"], vertex["green"], vertex["blue"]], axis=1
+            ).astype(np.float32)
+            if (colours > 1.0).any():
+                colours = np.clip(colours / 255.0, 0.0, 1.0)
+        else:
+            raise ValueError(
+                "Input ply file does not have valid colours (must have either "
+                "spherical harmonics or RGB colour fields)"
+            )
 
     shs = None
     if "f_dc_0" in props:
-        f_dc = np.stack(
-            [vertex["f_dc_0"], vertex["f_dc_1"], vertex["f_dc_2"]], axis=1
-        ).astype(np.float32)
-        rest = _sorted_props(names, "f_rest_")
-        expected = 3 * (max_sh_degree + 1) ** 2 - 3
-        if len(rest) != expected:
-            raise ValueError(
-                f"Expected {expected} f_rest_* properties for sh degree "
-                f"{max_sh_degree}, found {len(rest)}"
-            )
-        if rest:
-            f_rest = np.stack([vertex[p] for p in rest], axis=1).astype(np.float32)
-            f_rest = f_rest.reshape(n, 3, (max_sh_degree + 1) ** 2 - 1)
-            shs = np.concatenate([f_dc[:, :, None], f_rest], axis=2)
+        with log.span("ply_sh_rest"):
+            if rest:
+                f_rest = np.stack([vertex[p] for p in rest], axis=1).astype(np.float32)
+                f_rest = f_rest.reshape(n, 3, (max_sh_degree + 1) ** 2 - 1)
+                shs = np.concatenate([f_dc[:, :, None], f_rest], axis=2)
+            else:
+                shs = f_dc[:, :, None]
+
+    with log.span("ply_columns"):
+        hook("colours", colours)
+        if shs is not None:
+            hook("shs", shs)
+
+        scale_names = _sorted_props(names, "scale_")
+        if scale_names:
+            log_scales = np.stack([vertex[p] for p in scale_names], axis=1).astype(np.float32)
         else:
-            shs = f_dc[:, :, None]
-        colours = np.clip(SH_C0 * f_dc + 0.5, 0.0, 1.0).astype(np.float32)
-        hook("colours", colours)
-        hook("shs", shs)
-    elif "red" in props:
-        colours = np.stack(
-            [vertex["red"], vertex["green"], vertex["blue"]], axis=1
-        ).astype(np.float32)
-        if (colours > 1.0).any():
-            colours = np.clip(colours / 255.0, 0.0, 1.0)
-        hook("colours", colours)
-    else:
-        raise ValueError(
-            "Input ply file does not have valid colours (must have either "
-            "spherical harmonics or RGB colour fields)"
-        )
+            log_scales = np.full((n, 3), -8.0, np.float32)
+        hook("log_scales", log_scales)
 
-    scale_names = _sorted_props(names, "scale_")
-    if scale_names:
-        log_scales = np.stack([vertex[p] for p in scale_names], axis=1).astype(np.float32)
-    else:
-        log_scales = np.full((n, 3), -8.0, np.float32)
-    hook("log_scales", log_scales)
-
-    rot_names = _sorted_props(names, "rot")
-    if rot_names:
-        rots = np.stack([vertex[p] for p in rot_names], axis=1).astype(np.float32)
-        rots = rots / np.maximum(np.linalg.norm(rots, axis=1, keepdims=True), 1e-12)
-        rots = np.where(rots[:, :1] < 0.0, -rots, rots)
-    else:
-        rots = np.tile(np.array([[1, 0, 0, 0]], np.float32), (n, 1))
-    hook("rots", rots)
+        rot_names = _sorted_props(names, "rot")
+        if rot_names:
+            rots = np.stack([vertex[p] for p in rot_names], axis=1).astype(np.float32)
+            rots = rots / np.maximum(np.linalg.norm(rots, axis=1, keepdims=True), 1e-12)
+            rots = np.where(rots[:, :1] < 0.0, -rots, rots)
+        else:
+            rots = np.tile(np.array([[1, 0, 0, 0]], np.float32), (n, 1))
+        hook("rots", rots)
     return xyz, log_scales, rots, colours, opacities, shs
 
 
@@ -130,7 +141,9 @@ class PlaneUpload:
     makes the current stream wait for the uploads and returns the scene.
     The pinned sources are kept until then (and torch's host allocator
     reuses none of their blocks before its copy has finished).  On the CPU
-    a plane becomes a tensor at once, as Gaussians.from_numpy makes it."""
+    a plane becomes a tensor at once, as Gaussians.from_numpy makes it.
+    The span ``plane_upload`` sums the host seconds of every plane's hand-off
+    (quantise, pinned copy, enqueue), on the worker or inline."""
 
     def __init__(self, device, compact_colours: bool = False, with_shs: bool = False):
         self.device = torch.device(device)
@@ -153,17 +166,18 @@ class PlaneUpload:
             self._pending.append(self._pool.submit(self._put, name, array))
 
     def _put(self, name: str, array: np.ndarray) -> None:
-        if name == "colours" and self.compact_colours:
-            array = quantise_colours_u8(array)
-        host = np.require(array, np.float32, ["C", "W"])
-        if self._stream is None:
-            self.planes[name] = torch.as_tensor(host, device=self.device)
-            return
-        pinned = torch.empty(host.shape, dtype=torch.float32, pin_memory=True)
-        pinned.numpy()[...] = host
-        self._pinned.append(pinned)
-        with torch.cuda.stream(self._stream):
-            self.planes[name] = pinned.to(self.device, non_blocking=True)
+        with log.span("plane_upload"):
+            if name == "colours" and self.compact_colours:
+                array = quantise_colours_u8(array)
+            host = np.require(array, np.float32, ["C", "W"])
+            if self._stream is None:
+                self.planes[name] = torch.as_tensor(host, device=self.device)
+                return
+            pinned = torch.empty(host.shape, dtype=torch.float32, pin_memory=True)
+            pinned.numpy()[...] = host
+            self._pinned.append(pinned)
+            with torch.cuda.stream(self._stream):
+                self.planes[name] = pinned.to(self.device, non_blocking=True)
 
     def close(self) -> None:
         """Wait for the worker and stop it (idempotent)."""

@@ -42,6 +42,12 @@ class RenderOutput(NamedTuple):
     # run-cap drops on tiles with live pixels].  Float64 keeps the sums of
     # pair counts exact past 2^24.
     n_dropped: Optional[torch.Tensor] = None
+    # (3,) f64 K1's work on the camera [pairs the blend streamed (per tile
+    # the chunks it entered x run_chunk, within the capped count), pairs the
+    # surface pass streamed, padded pixels]; None where the tile renderer's
+    # K1 did not run for this camera alone (the dense oracle, the depth-slab
+    # renderer).
+    k1_work: Optional[torch.Tensor] = None
 
 
 class BlendCarry(NamedTuple):

@@ -25,6 +25,7 @@ import torch
 from gs2pc_torch.ops.blend import BACKGROUND, TILE, RenderOutput
 from gs2pc_torch.ops.blend_kernel import blend_tiles
 from gs2pc_torch.ops.projection import Preprocessed, project_and_pack
+from gs2pc_torch.utils import log
 
 # A dropped pair can still matter where a pixel's remaining transmittance
 # exceeds the blend's own alpha cutoff (1/255).
@@ -189,11 +190,13 @@ def blend_inputs(prep: Preprocessed, colours: torch.Tensor, camera, cfg: TileCon
     through to K1."""
     if table is None:
         table = pack_blend_table(prep, colours, compact=cfg.compact)
-    keys, gids = duplicate_with_keys(prep, cfg, circle_cull=not calc_surface_distance)
+    with log.trace_range("k2_pairs"):
+        keys, gids = duplicate_with_keys(prep, cfg, circle_cull=not calc_surface_distance)
     if gids.numel() >= 2**31:
         # K1 indexes the pair run with 32-bit ints.
         raise ValueError(f"{gids.numel()} pairs in one camera exceed K1's 2^31 limit")
-    sorted_keys, sorted_gid = sort_pairs(keys, gids)
+    with log.trace_range("key_sort"):
+        sorted_keys, sorted_gid = sort_pairs(keys, gids)
     starts, runs = tile_ranges(sorted_keys, cfg.num_tiles)
     if camera.mask is not None:
         live = _tile_max((camera.mask != 0).to(torch.float32), cfg) > 0.0
@@ -237,28 +240,44 @@ def render_tile_camera(
     with ``white_bkgd=False``.  ``blend`` replaces K1's wrapper
     ``blend_tiles`` (None), as the tools that time or ablate its twin
     ``blend_kernel.blend_tiles_torch`` on the card do."""
-    prep, table = project_and_pack(
-        means, cov_factors, opacities, alive, colours, camera, cfg,
-        adaptive_radius=not calc_surface_distance,
-    )
+    with log.trace_range("k6_project"):
+        prep, table = project_and_pack(
+            means, cov_factors, opacities, alive, colours, camera, cfg,
+            adaptive_radius=not calc_surface_distance,
+        )
     args, kwargs, runs = blend_inputs(
         prep, colours, camera, cfg, calc_surface_distance, table=table,
         init_trans=init_trans, ed_override=surface_ed_override, early_stop=early_stop,
         bg=BACKGROUND if white_bkgd else 0.0,
     )
-    res = (blend or blend_tiles)(*args, **kwargs)
+    with log.trace_range("k1_blend"):
+        res = (blend or blend_tiles)(*args, **kwargs)
 
     # Counters [pairs blended, window-truncated (none: the expansion is
     # exact), run-cap-dropped pairs, run-cap drops on tiles whose pixels
-    # still had visible transmittance].
+    # still had visible transmittance], then K1's work [pairs streamed:
+    # per tile its entered chunks x run_chunk within the capped count;
+    # pairs the surface pass streamed: the same with surface_compact, else
+    # the capped count, 0 without it; padded pixels].
     d_runs = runs.to(torch.float64)
+    capped = torch.clamp(d_runs, max=float(cfg.run_cap)).sum()
     cap_drop_tiles = torch.clamp(d_runs - cfg.run_cap, min=0.0)
     live_tile = _tile_max(res.live, cfg) > _LIVE_T_FLOOR
-    diag = torch.stack([
-        torch.clamp(d_runs, max=float(cfg.run_cap)).sum(),
-        torch.zeros((), dtype=torch.float64, device=d_runs.device),
+    streamed = torch.minimum(res.chunks * cfg.run_chunk, args[3]).sum(dtype=torch.float64)
+    zero = torch.zeros((), dtype=torch.float64, device=d_runs.device)
+    if calc_surface_distance:
+        surface = streamed if cfg.surface_compact else capped
+    else:
+        surface = zero
+    counters = torch.stack([
+        capped,
+        zero,
         cap_drop_tiles.sum(),
         torch.where(live_tile, cap_drop_tiles, 0.0).sum(),
+        streamed,
+        surface,
+        torch.full((), float(cfg.width_pad * cfg.height_pad), dtype=torch.float64,
+                   device=d_runs.device),
     ])
 
     contrib = res.contrib
@@ -275,5 +294,6 @@ def render_tile_camera(
         surf_dist=res.surf_dist,
         trans=res.trans if want_trans else None,
         best_pix=res.best_pix if want_best_pix else None,
-        n_dropped=diag,
+        n_dropped=counters[:4],
+        k1_work=counters[4:],
     )

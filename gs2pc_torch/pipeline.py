@@ -189,14 +189,16 @@ def set_precision() -> None:
 
 
 def report_truncation(acc: SweepAccumulators) -> Optional[list]:
-    """Log the sweep's truncation counters and return them, or None for a
-    sweep without counters (one loaded from a checkpoint).  The pair
-    expansion is exact, so only the per-tile run cap can drop pairs (and
-    the depth-slab buffers, counted as window drops)."""
+    """Log the sweep's truncation counters and return them, with K1's three
+    work counters appended where the sweep counted them (Conversion.
+    sweep_diag), or None for a sweep without counters (one loaded from a
+    checkpoint).  The pair expansion is exact, so only the per-tile run cap
+    can drop pairs (and the depth-slab buffers, counted as window drops)."""
     if acc.n_dropped is None:
         return None
-    pairs, win_drop, cap_drop, cap_live = (float(x) for x in acc.n_dropped.cpu())
-    diag = [pairs, win_drop, cap_drop, cap_live]
+    counters = acc.n_dropped if acc.k1_work is None else torch.cat([acc.n_dropped, acc.k1_work])
+    diag = [float(x) for x in counters.cpu()]
+    pairs, win_drop, cap_drop, cap_live = diag[:4]
     if pairs == 0.0 and win_drop == 0.0 and cap_drop == 0.0:
         return diag
     log.info(
@@ -225,7 +227,7 @@ def truncation_material(diag: Optional[list]) -> tuple[bool, bool]:
     (gs2pc.pipeline.report_truncation's flags)."""
     if diag is None:
         return False, False
-    pairs, win_drop, cap_drop, cap_live = diag
+    pairs, win_drop, cap_drop, cap_live = diag[:4]
     if pairs == 0.0 and win_drop == 0.0 and cap_drop == 0.0:
         return False, False
     denom = max(pairs, 1.0)
@@ -356,8 +358,11 @@ class Conversion(NamedTuple):
     # A LazyPointCloud; an io.ply.PointCloud once --clean_pointcloud ran.
     cloud: Union[LazyPointCloud, PointCloud]
     # Summed sweep counters [pairs blended, window-truncated, run-cap
-    # dropped, run-cap dropped on live tiles]; None without a sweep or
-    # with a loaded one.
+    # dropped, run-cap dropped on live tiles], then, where the sweep counted
+    # K1's work (the tile renderer's camera sweeps), [pairs K1 streamed,
+    # pairs its surface pass streamed, padded pixels] summed over the
+    # cameras; None without a sweep or with a loaded one.  Readers of the
+    # truncation counters take sweep_diag[:4].
     sweep_diag: Optional[list]
     # Which PLY writer ran (io.ply.save_point_cloud_ply: "native_stream" for
     # a lazy cloud, "native_expand" for an eager one), once the CLI wrote.

@@ -10,6 +10,7 @@ thread over a list of devices (render_sweep_sharded, its twin).
   total_contribution    SUM of the per-image max contributions
   min_surface_distance  running min |depth - expected depth|
   n_dropped             summed truncation counters (see RenderOutput)
+  k1_work               summed K1 work counters (see RenderOutput)
 """
 
 from __future__ import annotations
@@ -75,6 +76,10 @@ class SweepAccumulators(NamedTuple):
     total_contribution: torch.Tensor  # (P,)
     min_surface_distance: torch.Tensor  # (P,)
     n_dropped: Optional[torch.Tensor] = None  # (4,) float64
+    # (3,) float64 K1's work summed over the cameras (RenderOutput.k1_work):
+    # the tile renderer's camera sweeps carry it, walked or SPMD; the dense
+    # oracle, the depth-slab and 2-D sweeps and a loaded sweep leave None.
+    k1_work: Optional[torch.Tensor] = None
 
     def to(self, device) -> "SweepAccumulators":
         return SweepAccumulators(*(None if t is None else t.to(device) for t in self))
@@ -92,9 +97,11 @@ def init_accumulators(num_gaussians: int, *, device) -> SweepAccumulators:
 
 
 def _add_counters(a: Optional[torch.Tensor], b: Optional[torch.Tensor]):
-    """Sum of two counter vectors; a renderer without counters (the dense
-    oracle, None) leaves the other as it is."""
-    return a if a is None or b is None else a + b
+    """Sum of two counter vectors; a side without counters (None: the dense
+    oracle's, or accumulators not yet counting) leaves the other as it is."""
+    if a is None or b is None:
+        return b if a is None else a
+    return a + b
 
 
 def update_accumulators(acc: SweepAccumulators, out: RenderOutput) -> SweepAccumulators:
@@ -106,6 +113,7 @@ def update_accumulators(acc: SweepAccumulators, out: RenderOutput) -> SweepAccum
         total_contribution=acc.total_contribution + out.contrib,
         min_surface_distance=torch.minimum(acc.min_surface_distance, out.surf_dist),
         n_dropped=_add_counters(acc.n_dropped, out.n_dropped),
+        k1_work=_add_counters(acc.k1_work, out.k1_work),
     )
 
 
@@ -121,6 +129,7 @@ def merge_accumulators(a: SweepAccumulators, b: SweepAccumulators) -> SweepAccum
         total_contribution=a.total_contribution + b.total_contribution,
         min_surface_distance=torch.minimum(a.min_surface_distance, b.min_surface_distance),
         n_dropped=_add_counters(a.n_dropped, b.n_dropped),
+        k1_work=_add_counters(a.k1_work, b.k1_work),
     )
 
 
@@ -161,8 +170,12 @@ def render_sweep(
     renderer: str = "tile", sh: Optional[SH] = None,
 ) -> SweepAccumulators:
     """Render every camera in turn on the scene's device and fold it into
-    the accumulators."""
+    the accumulators.  The tile renderer's sweep counts K1's work from zero,
+    so every rank of an SPMD sweep holds the counter, cameras or not."""
     acc = init_accumulators(scene.means.shape[0], device=scene.means.device)
+    if renderer == "tile":
+        acc = acc._replace(k1_work=torch.zeros(3, dtype=torch.float64,
+                                               device=scene.means.device))
     for i in range(cameras.num_cameras):
         out = render_camera(scene, cameras.at(i), cfg, renderer, calc_surface_distance, sh)
         acc = update_accumulators(acc, out)
@@ -200,12 +213,14 @@ def render_sweep_sharded(
 def gather_merge(acc: SweepAccumulators, axis, blocks) -> SweepAccumulators:
     """Every rank's accumulators gathered over ``axis`` and merged in rank
     order from init_accumulators, skipping the ranks whose camera block
-    ``blocks[r]`` is empty: render_sweep_sharded's fold, on every rank."""
-    parts = [axis.all_gather(t) for t in acc]
+    ``blocks[r]`` is empty: render_sweep_sharded's fold, on every rank.
+    A field that is None (the same on every rank) stays None."""
+    parts = [None if t is None else axis.all_gather(t) for t in acc]
     out = init_accumulators(acc.max_contribution.shape[0], device=axis.device)
     for r, (lo, hi) in enumerate(blocks):
         if hi > lo:
-            out = merge_accumulators(out, SweepAccumulators(*(p[r] for p in parts)))
+            out = merge_accumulators(
+                out, SweepAccumulators(*(None if p is None else p[r] for p in parts)))
     return out
 
 

@@ -417,9 +417,10 @@ def trace_phases(path: str, names: Sequence[str] = TRANSFER_PHASES) -> dict:
 
 def device_profile(fn, trace: str) -> dict:
     """Run ``fn`` once under torch.profiler: its wall, the card's busy time
-    (the summed time of every kernel and copy on the card), the kernels
-    that took the most of it, and trace_phases of the transfer phases (the
-    Chrome trace written to ``trace`` on the way, then removed)."""
+    (device_busy_s: the union of every kernel's and copy's interval on the
+    card), the kernels that took the most of it, and trace_phases of the
+    transfer phases (the Chrome trace written to ``trace`` on the way, then
+    removed)."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -431,6 +432,7 @@ def device_profile(fn, trace: str) -> dict:
         wall = time.perf_counter() - t0
     prof.export_chrome_trace(trace)
     phases = trace_phases(trace)
+    busy = device_busy_s(trace)
     os.remove(trace)
 
     # Device-side events, without the phase ranges (user annotations).
@@ -440,10 +442,31 @@ def device_profile(fn, trace: str) -> dict:
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False) and e.key not in log.PHASE_SECONDS]
     events = sorted(kernels, key=_device_us, reverse=True)
-    busy = sum(_device_us(e) for e in events) / 1e6
     return {"wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
             "top_ms": {e.key[:60]: _device_us(e) / 1e3 for e in events[:10]},
             "phases": phases}
+
+
+# What runs on the card in a torch.profiler Chrome trace (its annotations,
+# "gpu_user_annotation", left out).
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_busy_s(path: str) -> float:
+    """Seconds of a torch.profiler Chrome trace in which at least one
+    kernel, copy or memset ran on the card: the union of their intervals,
+    whatever stream each ran on.  A sum would count twice the time the
+    side streams (the scene's upload, the points' fetch) overlap the
+    sweep.  The union is the benchmark's (benchmarks/gsbench/trace.py,
+    union_seconds), copied: the program imports nothing of the benchmark."""
+    events, _, _ = _trace(path)
+    busy, reach = 0.0, float("-inf")
+    for a, b in sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                       if e.get("cat") in DEVICE_CATEGORIES):
+        if b > reach:
+            busy += b - max(a, reach)
+            reach = b
+    return busy / 1e6
 
 
 def time_e2e(root: str, n_gaussians: int, n_runs: int, profile: bool,
