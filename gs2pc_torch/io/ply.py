@@ -1,9 +1,10 @@
 """PLY input and point-cloud output (the port's copy of gs2pc.io.ply's
 reader, and the counterpart of its save_point_cloud_ply).
 
-Reading: ``read_ply`` is the JAX package's dependency-free numpy codec,
-copied unchanged (binary little/big endian and ascii, scalar properties;
-list properties only through the row-wise path).
+Reading: ``read_ply`` is the JAX package's dependency-free numpy codec
+(binary little/big endian and ascii, scalar properties; list properties
+only through the row-wise path), its header parse split out as
+``read_ply_header`` for the scene loader's block parse.
 
 Writing: a cloud is positions (N, 3) and per-Gaussian uint8 colours /
 normals that expand over the per-Gaussian point counts (points are
@@ -63,6 +64,51 @@ class PlyElement:
         return [p[0] for p in self.properties]
 
 
+def read_ply_header(fh, path: str) -> tuple[str, list[PlyElement]]:
+    """The format and the elements (properties, no data) of the PLY open as
+    ``fh``, which is left at the first byte of the body."""
+    magic = fh.readline().strip()
+    if magic != b"ply":
+        raise AttributeError(f"{path} is not a PLY file")
+
+    fmt = None
+    elements: list[PlyElement] = []
+    while True:
+        line = fh.readline()
+        if not line:
+            raise AttributeError("Unexpected EOF in PLY header")
+        tokens = line.decode("ascii", "replace").strip().split()
+        if not tokens or tokens[0] == "comment":
+            continue
+        if tokens[0] == "format":
+            fmt = tokens[1]
+        elif tokens[0] == "element":
+            elements.append(PlyElement(tokens[1], int(tokens[2])))
+        elif tokens[0] == "property":
+            if tokens[1] == "list":
+                elements[-1].properties.append(
+                    (tokens[4], f"LIST:{_PLY_TYPES[tokens[2]]}:{_PLY_TYPES[tokens[3]]}")
+                )
+            else:
+                elements[-1].properties.append((tokens[2], _PLY_TYPES[tokens[1]]))
+        elif tokens[0] == "end_header":
+            break
+
+    if fmt is None:
+        raise AttributeError("PLY header missing format line")
+    return fmt, elements
+
+
+def has_list(elem: PlyElement) -> bool:
+    return any(t.startswith("LIST:") for _, t in elem.properties)
+
+
+def scalar_dtype(elem: PlyElement, fmt: str) -> np.dtype:
+    """The record dtype of a binary element with scalar properties."""
+    endian = "<" if fmt != "binary_big_endian" else ">"
+    return np.dtype([(n, endian + t) for n, t in elem.properties])
+
+
 def read_ply(path: str) -> dict[str, PlyElement]:
     """Parse a PLY file; returns elements keyed by name.
 
@@ -71,53 +117,22 @@ def read_ply(path: str) -> dict[str, PlyElement]:
     clouds — the only thing the pipeline reads — never use them).
     """
     with open(path, "rb") as fh:
-        magic = fh.readline().strip()
-        if magic != b"ply":
-            raise AttributeError(f"{path} is not a PLY file")
-
-        fmt = None
-        elements: list[PlyElement] = []
-        while True:
-            line = fh.readline()
-            if not line:
-                raise AttributeError("Unexpected EOF in PLY header")
-            tokens = line.decode("ascii", "replace").strip().split()
-            if not tokens or tokens[0] == "comment":
-                continue
-            if tokens[0] == "format":
-                fmt = tokens[1]
-            elif tokens[0] == "element":
-                elements.append(PlyElement(tokens[1], int(tokens[2])))
-            elif tokens[0] == "property":
-                if tokens[1] == "list":
-                    elements[-1].properties.append(
-                        (tokens[4], f"LIST:{_PLY_TYPES[tokens[2]]}:{_PLY_TYPES[tokens[3]]}")
-                    )
-                else:
-                    elements[-1].properties.append((tokens[2], _PLY_TYPES[tokens[1]]))
-            elif tokens[0] == "end_header":
-                break
-
-        if fmt is None:
-            raise AttributeError("PLY header missing format line")
-
+        fmt, elements = read_ply_header(fh, path)
         endian = "<" if fmt != "binary_big_endian" else ">"
         for elem in elements:
-            has_list = any(t.startswith("LIST:") for _, t in elem.properties)
             if fmt == "ascii":
                 _read_ascii_element(fh, elem)
-            elif has_list:
+            elif has_list(elem):
                 _read_binary_list_element(fh, elem, endian)
             else:
-                dtype = np.dtype([(n, endian + t) for n, t in elem.properties])
+                dtype = scalar_dtype(elem, fmt)
                 buf = fh.read(dtype.itemsize * elem.count)
                 elem.data = np.frombuffer(buf, dtype=dtype, count=elem.count)
     return {e.name: e for e in elements}
 
 
 def _read_ascii_element(fh, elem: PlyElement) -> None:
-    has_list = any(t.startswith("LIST:") for _, t in elem.properties)
-    if has_list:
+    if has_list(elem):
         # parse row by row, keeping only scalar leading properties
         rows = []
         for _ in range(elem.count):

@@ -30,7 +30,7 @@ def load_host(path: str, max_sh_degree: int = 3):
     if ext == ".splat":
         arrays = load_splat_gaussians(path)
     elif ext == ".ply":
-        arrays = load_ply_gaussians(path, max_sh_degree=max_sh_degree)
+        arrays = load_ply_gaussians(path, max_sh_degree=max_sh_degree, with_shs=False)
     else:
         raise ValueError(f"Unsupported input type {ext}")
     xyz, log_scales, rots, colours, opacities = (np.asarray(a, np.float32) for a in arrays[:5])
