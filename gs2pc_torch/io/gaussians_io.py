@@ -5,9 +5,11 @@ copies of the JAX package's (gs2pc_torch.io.ply, gs2pc_torch.io.splat); the
 plane extraction below repeats gs2pc.io.ply.load_ply_gaussians' rules, bit
 for bit.  A binary .ply is parsed in blocks of BLOCK_ROWS rows, spread
 over a few threads, each block read into its thread's buffer and its
-columns taken into every plane from there; as in the JAX package, the
-planes are then handed to the upload (``plane_hook``) in turn, so on a card
-the first plane's transfer runs while the next is handed over.
+columns taken into every plane from there.  load_gaussians parses into
+planes its upload lends (PlaneUpload.lend: pinned on a card), with the
+colours quantised as each block is filled, so once the parse has ended the
+hand-off (``plane_hook``, in the JAX package's order) only enqueues each
+plane's transfer.
 """
 
 from __future__ import annotations
@@ -55,13 +57,23 @@ def _take(out: np.ndarray, rec: np.ndarray, fields) -> np.ndarray:
     return out
 
 
+def _empty(name: str, shape) -> np.ndarray:
+    return np.empty(shape, np.float32)
+
+
 class _Planes:
     """The scene's planes of a vertex element with the properties ``names``,
     allocated once and filled a run of rows at a time (``fill``) with
     gs2pc.io.ply.load_ply_gaussians' expressions, all elementwise or within
-    a row; ``shs`` only ``with_shs`` on an SH scene."""
+    a row; ``shs`` only ``with_shs`` on an SH scene.
 
-    def __init__(self, names, n: int, max_sh_degree: int, with_shs: bool):
+    Every plane read from the file comes from ``lender.lend(name, shape)``
+    (a float32 array to fill) when a lender is given, else from np.empty;
+    with ``lender.compact_colours`` the colours are quantised as
+    quantise_colours_u8 does, in place: an SH scene's a block at a time in
+    ``fill``, an RGB scene's in ``finish``, after its /255 autodetect."""
+
+    def __init__(self, names, n: int, max_sh_degree: int, with_shs: bool, lender=None):
         props = set(names)
         self.sh = "f_dc_0" in props
         if self.sh:
@@ -80,15 +92,17 @@ class _Planes:
         self.opacity = "opacity" in props
         self.scale_names = _sorted_props(names, "scale_")
         self.rot_names = _sorted_props(names, "rot")
+        self.quantise = lender is not None and lender.compact_colours
+        empty = _empty if lender is None else lender.lend
         f32 = np.float32
-        self.xyz = np.empty((n, 3), f32)
-        self.opacities = np.empty(n, f32) if self.opacity else np.ones(n, f32)
-        self.colours = np.empty((n, 3), f32)
-        self.shs = np.empty((n, 3, (max_sh_degree + 1) ** 2), f32) if (
+        self.xyz = empty("xyz", (n, 3))
+        self.opacities = empty("opacities", (n,)) if self.opacity else np.ones(n, f32)
+        self.colours = empty("colours", (n, 3))
+        self.shs = empty("shs", (n, 3, (max_sh_degree + 1) ** 2)) if (
             self.sh and with_shs) else None
-        self.log_scales = (np.empty((n, len(self.scale_names)), f32) if self.scale_names
+        self.log_scales = (empty("log_scales", (n, len(self.scale_names))) if self.scale_names
                            else np.full((n, 3), -8.0, f32))
-        self.rots = (np.empty((n, len(self.rot_names)), f32) if self.rot_names
+        self.rots = (empty("rots", (n, len(self.rot_names))) if self.rot_names
                      else np.tile(np.array([[1, 0, 0, 0]], f32), (n, 1)))
 
     def fill(self, rec: np.ndarray, lo: int, span=log.span) -> None:
@@ -103,7 +117,8 @@ class _Planes:
             if self.sh:
                 f_dc = _take(np.empty((rec.shape[0], 3), np.float32), rec,
                              ("f_dc_0", "f_dc_1", "f_dc_2"))
-                self.colours[rows] = np.clip(SH_C0 * f_dc + 0.5, 0.0, 1.0)
+                colours = np.clip(SH_C0 * f_dc + 0.5, 0.0, 1.0)
+                self.colours[rows] = _quantise_u8(colours) if self.quantise else colours
             else:
                 _take(self.colours[rows], rec, ("red", "green", "blue"))
             if self.scale_names:
@@ -125,9 +140,14 @@ class _Planes:
                         rec[self.rest]).reshape(rec.shape[0], 3, -1)
 
     def finish(self) -> None:
-        """What is decided over the whole plane: the RGB /255 autodetect."""
-        if not self.sh and (self.colours > 1.0).any():
-            self.colours = np.clip(self.colours / 255.0, 0.0, 1.0)
+        """What is decided over the whole plane: the RGB /255 autodetect,
+        then an RGB scene's quantise; both in place."""
+        if self.sh:
+            return
+        if (self.colours > 1.0).any():
+            np.clip(np.divide(self.colours, 255.0, out=self.colours), 0.0, 1.0, out=self.colours)
+        if self.quantise:
+            _quantise_u8(self.colours)
 
 
 def _untimed(name: str):
@@ -185,7 +205,7 @@ def _parse_blocks(path: str, body: int, dtype: np.dtype, n: int, planes: _Planes
 
 
 def load_ply_gaussians(path: str, max_sh_degree: int = 3, plane_hook=None,
-                       with_shs: bool = True):
+                       with_shs: bool = True, lender=None):
     """3DGS .ply -> host arrays (xyz, log_scales, rots, colours, opacities,
     shs), with the same rules as gs2pc.io.ply.load_ply_gaussians: sigmoid
     opacities, degree-0 SH colours (or RGB with /255 autodetect), unit
@@ -205,19 +225,22 @@ def load_ply_gaussians(path: str, max_sh_degree: int = 3, plane_hook=None,
 
     ``plane_hook(name, array)`` is called once the parse has ended, for each
     plane in the JAX package's order and with its names: xyz, opacities,
-    colours (then shs, when taken), log_scales, rots.
+    colours (then shs, when taken), log_scales, rots.  With a ``lender``
+    (PlaneUpload) the planes read from the file are the ones it lends, the
+    colours quantised when it has ``compact_colours`` (_Planes).
 
     Spans (utils.log.span), which do not overlap: ``ply_read`` the header
-    and the reads, ``ply_columns`` every plane but shs and the hook calls,
-    ``ply_sh_rest`` the f_dc and f_rest copy into ``shs`` (entered, empty,
-    when no shs is made); of the blocks, those of the calling thread."""
+    and the reads, ``ply_columns`` every plane but shs and the RGB /255
+    decision, ``ply_sh_rest`` the f_dc and f_rest copy into ``shs``
+    (entered, empty, when no shs is made); of the blocks, those of the
+    calling thread.  The hook calls come after them."""
     hook = plane_hook or (lambda name, array: None)
     with log.span("ply_read"):
         with open(path, "rb") as fh:
             fmt, elements = read_ply_header(fh, path)
             body = fh.tell()
     vertex = elements[0]
-    planes = _Planes(vertex.property_names, vertex.count, max_sh_degree, with_shs)
+    planes = _Planes(vertex.property_names, vertex.count, max_sh_degree, with_shs, lender)
     blocked = fmt != "ascii" and not has_list(vertex)
     if blocked:
         n_blocks = _parse_blocks(path, body, scalar_dtype(vertex, fmt), vertex.count, planes)
@@ -234,23 +257,30 @@ def load_ply_gaussians(path: str, max_sh_degree: int = 3, plane_hook=None,
 
     with log.span("ply_columns"):
         planes.finish()
-        hook("xyz", planes.xyz)
-        hook("opacities", planes.opacities)
-        hook("colours", planes.colours)
-        if planes.shs is not None:
-            hook("shs", planes.shs)
-        hook("log_scales", planes.log_scales)
-        hook("rots", planes.rots)
+    hook("xyz", planes.xyz)
+    hook("opacities", planes.opacities)
+    hook("colours", planes.colours)
+    if planes.shs is not None:
+        hook("shs", planes.shs)
+    hook("log_scales", planes.log_scales)
+    hook("rots", planes.rots)
     return (planes.xyz, planes.log_scales, planes.rots, planes.colours, planes.opacities,
             planes.shs)
+
+
+def _quantise_u8(c: np.ndarray) -> np.ndarray:
+    """quantise_colours_u8 of the float32 array ``c``, in place; returns ``c``."""
+    np.clip(c, 0.0, 1.0, out=c)
+    np.round(np.multiply(c, np.float32(255.0), out=c), out=c)
+    c[...] = c.astype(np.uint8)
+    return np.multiply(c, np.float32(1.0 / 255.0), out=c)
 
 
 def quantise_colours_u8(colours: np.ndarray) -> np.ndarray:
     """Round-to-nearest 8-bit colours, returned as float32 k * (1/255) (the
     value the compact blend table decodes, and the JAX loader's): the exact
     quantisation the compact blend table applies (rasterize.pack_blend_table)."""
-    c8 = np.round(np.clip(colours.astype(np.float32), 0.0, 1.0) * np.float32(255.0))
-    return c8.astype(np.uint8).astype(np.float32) * np.float32(1.0 / 255.0)
+    return _quantise_u8(colours.astype(np.float32))
 
 
 class PlaneUpload:
@@ -258,65 +288,78 @@ class PlaneUpload:
     ``plane_hook``): colours quantised with ``compact_colours``, the SH
     coefficients kept only ``with_shs``.
 
-    On a card one worker thread takes each plane in turn while the parse
-    goes on: it quantises the colours, copies the plane into pinned host
-    memory and starts its upload with ``non_blocking=True`` on a side
-    stream (the JAX loader uploads from a pool of threads, for the same
-    reason: numpy and the copies release the interpreter lock, so this work
-    hides under the column extraction).  ``scene()`` waits for the worker,
-    makes the current stream wait for the uploads and returns the scene.
-    The pinned sources are kept until then (and torch's host allocator
-    reuses none of their blocks before its copy has finished).  On the CPU
-    a plane becomes a tensor at once, as Gaussians.from_numpy makes it.
-    The span ``plane_upload`` sums the host seconds of every plane's hand-off
-    (quantise, pinned copy, enqueue), on the worker or inline."""
+    ``lend`` gives the parser the host planes it will hand over (a
+    ``lender`` of load_ply_gaussians): on a card pinned memory from torch's
+    caching host allocator, whose blocks come back pinned and faulted in
+    from one conversion to the next; on the CPU np.empty.  A plane it lent
+    comes back final (its colours quantised in the parse) and is handed
+    over in place: on a card its upload is enqueued with
+    ``non_blocking=True`` on a side stream, on the CPU it becomes a tensor
+    sharing its memory.  Any other plane (the .splat parser's, a direct
+    caller's) is quantised and copied into pinned memory first.  ``scene()``
+    makes the current stream wait for the uploads and returns the scene;
+    the pinned sources are kept until then (and torch's host allocator
+    reuses none of their blocks before its copy has finished).  The span
+    ``plane_upload`` sums the host seconds of every plane's hand-off;
+    ``in_place`` and ``copied`` count the planes handed over each way."""
 
     def __init__(self, device, compact_colours: bool = False, with_shs: bool = False):
         self.device = torch.device(device)
         self.compact_colours = compact_colours
         self.with_shs = with_shs
         self.planes: dict = {}
+        self.in_place = self.copied = 0
+        self._lent: dict = {}
         self._pinned: list = []
-        self._pending: list = []
-        self._stream = self._pool = None
-        if self.device.type == "cuda":
-            self._stream = torch.cuda.Stream(self.device)
-            self._pool = ThreadPoolExecutor(1, thread_name_prefix="gs2pc_upload")
+        self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+
+    def lend(self, name: str, shape) -> np.ndarray:
+        """A float32 host plane of ``shape`` for the parser to fill, kept to
+        be handed over as ``name`` (a plane this upload drops is not)."""
+        if name == "shs" and not self.with_shs:
+            return np.empty(shape, np.float32)
+        if self._stream is None:
+            plane = np.empty(shape, np.float32)
+            source = torch.from_numpy(plane)
+        else:
+            source = torch.empty(shape, dtype=torch.float32, pin_memory=True)
+            plane = source.numpy()
+        self._lent[name] = (plane, source)
+        return plane
 
     def __call__(self, name: str, array: np.ndarray) -> None:
         if name == "shs" and not self.with_shs:
             return
-        if self._pool is None:
-            self._put(name, array)
-        else:
-            self._pending.append(self._pool.submit(self._put, name, array))
-
-    def _put(self, name: str, array: np.ndarray) -> None:
         with log.span("plane_upload"):
-            if name == "colours" and self.compact_colours:
-                array = quantise_colours_u8(array)
-            host = np.require(array, np.float32, ["C", "W"])
+            plane, source = self._lent.pop(name, (None, None))
+            if plane is array:
+                self.in_place += 1
+            else:
+                self.copied += 1
+                source = self._copy(name, array)
             if self._stream is None:
-                self.planes[name] = torch.as_tensor(host, device=self.device)
+                self.planes[name] = source
                 return
-            pinned = torch.empty(host.shape, dtype=torch.float32, pin_memory=True)
-            pinned.numpy()[...] = host
-            self._pinned.append(pinned)
+            self._pinned.append(source)
             with torch.cuda.stream(self._stream):
-                self.planes[name] = pinned.to(self.device, non_blocking=True)
+                self.planes[name] = source.to(self.device, non_blocking=True)
 
-    def close(self) -> None:
-        """Wait for the worker and stop it (idempotent)."""
-        if self._pool is not None:
-            self._pool.shutdown()
-            self._pool = None
+    def _copy(self, name: str, array: np.ndarray) -> torch.Tensor:
+        """A host tensor of a plane not lent: pinned on a card."""
+        if name == "colours" and self.compact_colours:
+            array = quantise_colours_u8(array)
+        host = np.require(array, np.float32, ["C", "W"])
+        if self._stream is None:
+            return torch.as_tensor(host, device=self.device)
+        pinned = torch.empty(host.shape, dtype=torch.float32, pin_memory=True)
+        pinned.numpy()[...] = host
+        return pinned
 
     def scene(self) -> Gaussians:
         """The planes as a Gaussians with every row kept, usable on the
-        current stream; raises what a plane's upload raised."""
-        self.close()
-        for done in self._pending:
-            done.result()
+        current stream; logs how the planes were handed over."""
+        log.info(f"[gs2pc_torch] plane upload: {self.in_place} planes in place, "
+                 f"{self.copied} copied")
         p = self.planes
         if self._stream is not None:
             current = torch.cuda.current_stream(self.device)
@@ -324,6 +367,7 @@ class PlaneUpload:
             for t in p.values():
                 t.record_stream(current)
             self._pinned.clear()
+        self._lent.clear()
         return Gaussians(
             xyz=p["xyz"], log_scales=p["log_scales"], rots=p["rots"],
             opacities=p["opacities"].reshape(-1), colours=p["colours"], shs=p.get("shs"),
@@ -341,25 +385,22 @@ def load_gaussians(
     With ``compact_colours`` the colour plane is quantised to 8 bits per
     channel before the upload, as in the JAX loader.  The SH coefficients
     of an SH scene are uploaded only ``with_shs`` (--sh_colour_eval): a
-    degree-3 scene of 3M Gaussians carries 576 MB of them.  A .ply scene's
-    planes start their upload while the parse goes on (PlaneUpload); a
-    .splat scene's, which its parser makes together, after it."""
+    degree-3 scene of 3M Gaussians carries 576 MB of them.  A .ply scene is
+    parsed into the planes PlaneUpload lends, and handed over in place; a
+    .splat scene's planes, which its parser makes, are copied."""
     ext = os.path.splitext(input_path)[1]
     if ext not in (".splat", ".ply"):
         raise ValueError(f"Unsupported input type {ext}")
     upload = PlaneUpload(device, compact_colours=compact_colours, with_shs=with_shs)
-    try:
-        with log.phase("scene_parse"):
-            if ext == ".splat":
-                xyz, log_scales, rots, colours, opacities, _ = load_splat_gaussians(input_path)
-                for name, plane in (("xyz", xyz), ("opacities", opacities),
-                                    ("colours", colours), ("log_scales", log_scales),
-                                    ("rots", rots)):
-                    upload(name, plane)
-            else:
-                load_ply_gaussians(input_path, max_sh_degree=max_sh_degree, plane_hook=upload,
-                                   with_shs=with_shs)
-        with log.phase("scene_upload"):
-            return upload.scene()
-    finally:
-        upload.close()
+    with log.phase("scene_parse"):
+        if ext == ".splat":
+            xyz, log_scales, rots, colours, opacities, _ = load_splat_gaussians(input_path)
+            for name, plane in (("xyz", xyz), ("opacities", opacities),
+                                ("colours", colours), ("log_scales", log_scales),
+                                ("rots", rots)):
+                upload(name, plane)
+        else:
+            load_ply_gaussians(input_path, max_sh_degree=max_sh_degree, plane_hook=upload,
+                               with_shs=with_shs, lender=upload)
+    with log.phase("scene_upload"):
+        return upload.scene()

@@ -2,8 +2,9 @@
 load_ply_gaussians) against gs2pc.io.ply.load_ply_gaussians: the planes bit
 for bit on every layout, with blocks cut small so the last one is partial
 and, where the machine has the cores, spread over threads; the records
-reader for ascii; a short file; and a conversion's load without the SH
-coefficients, which skips the f_rest copy."""
+reader for ascii; a short file; a conversion's load without the SH
+coefficients, which skips the f_rest copy; and a conversion's load into
+the planes its upload lends, handed over in place."""
 
 import numpy as np
 import pytest
@@ -174,3 +175,106 @@ def test_blocks_spread_over_more_threads_than_cores(tmp_path, monkeypatch):
         sys.setswitchinterval(interval)
     for a, b in zip(got, jax_ply.load_ply_gaussians(path)):
         np.testing.assert_array_equal(a, b)
+
+
+def _levels(colours):
+    """quantise_colours_u8's expressions, written out."""
+    c8 = np.round(np.clip(colours.astype(np.float32), 0.0, 1.0) * np.float32(255.0))
+    return c8.astype(np.uint8).astype(np.float32) * np.float32(1.0 / 255.0)
+
+
+@pytest.fixture
+def handover(monkeypatch):
+    """The planes each PlaneUpload lends and is handed, by name, and the
+    uploads made."""
+    seen = {"lent": {}, "handed": {}, "uploads": []}
+    up = gaussians_io.PlaneUpload
+    real_init, real_lend, real_call = up.__init__, up.lend, up.__call__
+
+    def init(self, *args, **kwargs):
+        seen["uploads"].append(self)
+        real_init(self, *args, **kwargs)
+
+    def lend(self, name, shape):
+        plane = seen["lent"][name] = real_lend(self, name, shape)
+        return plane
+
+    def call(self, name, array):
+        seen["handed"][name] = array
+        return real_call(self, name, array)
+
+    monkeypatch.setattr(up, "__init__", init)
+    monkeypatch.setattr(up, "lend", lend)
+    monkeypatch.setattr(up, "__call__", call)
+    return seen
+
+
+SCENE_PLANES = {"xyz": 0, "log_scales": 1, "rots": 2, "colours": 3, "opacities": 4}
+
+
+@pytest.mark.parametrize("workers", [1, 3])
+@pytest.mark.parametrize("compact", [False, True], ids=["full", "compact"])
+@pytest.mark.parametrize("kind", ["inria_sh3", "sh0", "rgb_uchar_late", "rgb_uchar_dim"])
+def test_parse_into_lent_planes(tmp_path, monkeypatch, parse_lines, handover, kind, compact,
+                                workers):
+    """load_gaussians parses a .ply into the planes its upload lends and
+    hands each one over in place: every plane the JAX loader's bit for bit,
+    the colours quantised as quantise_colours_u8 quantises JAX's plane (an
+    SH scene's a block at a time, an RGB scene's after its /255), each plane
+    handed over the very array lent and the tensor on its memory, and the
+    counter at 5 in place, 0 copied."""
+    props, fmt, late = layout(kind)
+    path = write_ply(tmp_path / "scene.ply", props, ROWS, fmt=fmt, late_bright=late)
+    monkeypatch.setattr(gaussians_io, "BLOCK_ROWS", BLOCK)
+    monkeypatch.setattr(gaussians_io, "MAX_WORKERS", workers)
+    degree = 0 if kind == "sh0" else 3
+    g = gaussians_io.load_gaussians(path, max_sh_degree=degree, compact_colours=compact,
+                                    device="cpu")
+    want = jax_ply.load_ply_gaussians(path, max_sh_degree=degree)
+    for name, i in SCENE_PLANES.items():
+        plane = getattr(g, name).numpy()
+        expect = _levels(want[i]) if name == "colours" and compact else want[i]
+        assert plane.dtype == expect.dtype and plane.shape == expect.shape, name
+        np.testing.assert_array_equal(plane, expect)
+        if name == "colours" and compact:
+            np.testing.assert_array_equal(plane, gaussians_io.quantise_colours_u8(want[i]))
+        assert handover["handed"][name] is handover["lent"][name], name
+        assert np.shares_memory(plane, handover["lent"][name]), name
+    assert g.shs is None and "shs" not in handover["lent"]
+    (upload,) = handover["uploads"]
+    assert (upload.in_place, upload.copied) == (5, 0)
+    assert parse_lines[-1] == "[gs2pc_torch] plane upload: 5 planes in place, 0 copied"
+
+
+def test_parse_into_lent_planes_with_shs(tmp_path, monkeypatch, handover):
+    """with_shs the SH plane is lent and handed over in place too."""
+    path = write_ply(tmp_path / "scene.ply", layout("inria_sh3")[0], ROWS)
+    monkeypatch.setattr(gaussians_io, "BLOCK_ROWS", BLOCK)
+    g = gaussians_io.load_gaussians(path, with_shs=True, compact_colours=True, device="cpu")
+    np.testing.assert_array_equal(g.shs.numpy(), jax_ply.load_ply_gaussians(path)[5])
+    assert handover["handed"]["shs"] is handover["lent"]["shs"]
+    (upload,) = handover["uploads"]
+    assert (upload.in_place, upload.copied) == (6, 0)
+
+
+def test_splat_planes_are_copied(tmp_path, parse_lines, handover):
+    """A .splat scene's planes, which its parser makes, are quantised and
+    copied: 0 in place, 5 copied, nothing lent."""
+    from gs2pc_torch.io.splat import load_splat_gaussians, save_splat
+
+    r = np.random.default_rng(9)
+    xyz = r.normal(size=(ROWS, 3)).astype(np.float32)
+    rots = r.normal(size=(ROWS, 4)).astype(np.float32)
+    save_splat(str(tmp_path / "scene.splat"), xyz, r.normal(size=(ROWS, 3)).astype(np.float32),
+               rots / np.linalg.norm(rots, axis=1, keepdims=True),
+               r.uniform(size=(ROWS, 3)).astype(np.float32),
+               r.uniform(size=ROWS).astype(np.float32))
+    path = str(tmp_path / "scene.splat")
+    g = gaussians_io.load_gaussians(path, compact_colours=True, device="cpu")
+    want = load_splat_gaussians(path)
+    np.testing.assert_array_equal(g.colours.numpy(), _levels(want[3]))
+    np.testing.assert_array_equal(g.xyz.numpy(), want[0])
+    assert handover["lent"] == {}
+    (upload,) = handover["uploads"]
+    assert (upload.in_place, upload.copied) == (0, 5)
+    assert parse_lines == ["[gs2pc_torch] plane upload: 0 planes in place, 5 copied"]
