@@ -6,10 +6,9 @@ plane extraction below repeats gs2pc.io.ply.load_ply_gaussians' rules, bit
 for bit.  A binary .ply is parsed in blocks of BLOCK_ROWS rows, spread
 over a few threads, each block read into its thread's buffer and its
 columns taken into every plane from there.  load_gaussians parses into
-planes its upload lends (PlaneUpload.lend: pinned on a card), with the
-colours quantised as each block is filled, so once the parse has ended the
-hand-off (``plane_hook``, in the JAX package's order) only enqueues each
-plane's transfer.
+host planes it allocates (pinned on a card), with the colours quantised as
+each block is filled, and once the parse has ended enqueues each plane's
+upload.
 """
 
 from __future__ import annotations
@@ -57,23 +56,20 @@ def _take(out: np.ndarray, rec: np.ndarray, fields) -> np.ndarray:
     return out
 
 
-def _empty(name: str, shape) -> np.ndarray:
-    return np.empty(shape, np.float32)
-
-
 class _Planes:
     """The scene's planes of a vertex element with the properties ``names``,
     allocated once and filled a run of rows at a time (``fill``) with
     gs2pc.io.ply.load_ply_gaussians' expressions, all elementwise or within
     a row; ``shs`` only ``with_shs`` on an SH scene.
 
-    Every plane read from the file comes from ``lender.lend(name, shape)``
-    (a float32 array to fill) when a lender is given, else from np.empty;
-    with ``lender.compact_colours`` the colours are quantised as
-    quantise_colours_u8 does, in place: an SH scene's a block at a time in
-    ``fill``, an RGB scene's in ``finish``, after its /255 autodetect."""
+    Every plane comes from ``alloc(name, shape)`` (a float32 array to
+    fill); one the file has no fields for is filled here with the JAX
+    loader's constant.  With ``compact_colours`` the colours are quantised
+    as quantise_colours_u8 does, in place: an SH scene's a block at a time
+    in ``fill``, an RGB scene's in ``finish``, after its /255 autodetect."""
 
-    def __init__(self, names, n: int, max_sh_degree: int, with_shs: bool, lender=None):
+    def __init__(self, names, n: int, max_sh_degree: int, with_shs: bool, alloc,
+                 compact_colours: bool):
         props = set(names)
         self.sh = "f_dc_0" in props
         if self.sh:
@@ -92,18 +88,20 @@ class _Planes:
         self.opacity = "opacity" in props
         self.scale_names = _sorted_props(names, "scale_")
         self.rot_names = _sorted_props(names, "rot")
-        self.quantise = lender is not None and lender.compact_colours
-        empty = _empty if lender is None else lender.lend
-        f32 = np.float32
-        self.xyz = empty("xyz", (n, 3))
-        self.opacities = empty("opacities", (n,)) if self.opacity else np.ones(n, f32)
-        self.colours = empty("colours", (n, 3))
-        self.shs = empty("shs", (n, 3, (max_sh_degree + 1) ** 2)) if (
+        self.quantise = compact_colours
+        self.xyz = alloc("xyz", (n, 3))
+        self.opacities = alloc("opacities", (n,))
+        if not self.opacity:
+            self.opacities[...] = 1.0
+        self.colours = alloc("colours", (n, 3))
+        self.shs = alloc("shs", (n, 3, (max_sh_degree + 1) ** 2)) if (
             self.sh and with_shs) else None
-        self.log_scales = (empty("log_scales", (n, len(self.scale_names))) if self.scale_names
-                           else np.full((n, 3), -8.0, f32))
-        self.rots = (empty("rots", (n, len(self.rot_names))) if self.rot_names
-                     else np.tile(np.array([[1, 0, 0, 0]], f32), (n, 1)))
+        self.log_scales = alloc("log_scales", (n, len(self.scale_names) or 3))
+        if not self.scale_names:
+            self.log_scales[...] = -8.0
+        self.rots = alloc("rots", (n, len(self.rot_names) or 4))
+        if not self.rot_names:
+            self.rots[...] = (1.0, 0.0, 0.0, 0.0)
 
     def fill(self, rec: np.ndarray, lo: int, span=log.span) -> None:
         """Rows lo.. of every plane from the records ``rec``: span
@@ -204,8 +202,8 @@ def _parse_blocks(path: str, body: int, dtype: np.dtype, n: int, planes: _Planes
     return len(starts)
 
 
-def load_ply_gaussians(path: str, max_sh_degree: int = 3, plane_hook=None,
-                       with_shs: bool = True, lender=None):
+def load_ply_gaussians(path: str, max_sh_degree: int = 3, with_shs: bool = True,
+                       alloc=None, compact_colours: bool = False):
     """3DGS .ply -> host arrays (xyz, log_scales, rots, colours, opacities,
     shs), with the same rules as gs2pc.io.ply.load_ply_gaussians: sigmoid
     opacities, degree-0 SH colours (or RGB with /255 autodetect), unit
@@ -223,24 +221,24 @@ def load_ply_gaussians(path: str, max_sh_degree: int = 3, plane_hook=None,
     One log line says which reader ran, the blocks read and whether f_rest
     was copied.
 
-    ``plane_hook(name, array)`` is called once the parse has ended, for each
-    plane in the JAX package's order and with its names: xyz, opacities,
-    colours (then shs, when taken), log_scales, rots.  With a ``lender``
-    (PlaneUpload) the planes read from the file are the ones it lends, the
-    colours quantised when it has ``compact_colours`` (_Planes).
+    Every plane returned is the float32 array ``alloc(name, shape)`` gave
+    (np.empty by default), asked for in the JAX package's order and with its
+    names: xyz, opacities, colours, shs (when taken), log_scales, rots.
+    With ``compact_colours`` the colours come quantised as
+    quantise_colours_u8 quantises them (_Planes).
 
     Spans (utils.log.span), which do not overlap: ``ply_read`` the header
     and the reads, ``ply_columns`` every plane but shs and the RGB /255
     decision, ``ply_sh_rest`` the f_dc and f_rest copy into ``shs``
     (entered, empty, when no shs is made); of the blocks, those of the
-    calling thread.  The hook calls come after them."""
-    hook = plane_hook or (lambda name, array: None)
+    calling thread."""
     with log.span("ply_read"):
         with open(path, "rb") as fh:
             fmt, elements = read_ply_header(fh, path)
             body = fh.tell()
     vertex = elements[0]
-    planes = _Planes(vertex.property_names, vertex.count, max_sh_degree, with_shs, lender)
+    planes = _Planes(vertex.property_names, vertex.count, max_sh_degree, with_shs,
+                     alloc or (lambda name, shape: np.empty(shape, np.float32)), compact_colours)
     blocked = fmt != "ascii" and not has_list(vertex)
     if blocked:
         n_blocks = _parse_blocks(path, body, scalar_dtype(vertex, fmt), vertex.count, planes)
@@ -257,13 +255,6 @@ def load_ply_gaussians(path: str, max_sh_degree: int = 3, plane_hook=None,
 
     with log.span("ply_columns"):
         planes.finish()
-    hook("xyz", planes.xyz)
-    hook("opacities", planes.opacities)
-    hook("colours", planes.colours)
-    if planes.shs is not None:
-        hook("shs", planes.shs)
-    hook("log_scales", planes.log_scales)
-    hook("rots", planes.rots)
     return (planes.xyz, planes.log_scales, planes.rots, planes.colours, planes.opacities,
             planes.shs)
 
@@ -283,97 +274,22 @@ def quantise_colours_u8(colours: np.ndarray) -> np.ndarray:
     return _quantise_u8(colours.astype(np.float32))
 
 
-class PlaneUpload:
-    """The scene's planes on ``device`` as the parser hands them over (a
-    ``plane_hook``): colours quantised with ``compact_colours``, the SH
-    coefficients kept only ``with_shs``.
+class _HostPlanes:
+    """The ``alloc`` of a load onto ``device``: float32 host planes, on a
+    card pinned memory from torch's caching host allocator (whose blocks
+    come back pinned and faulted in from one conversion to the next), each
+    kept by name as the tensor its upload starts from: the allocator holds a
+    block back until its copy has finished only for a tensor it handed out,
+    not for one made again from the array."""
 
-    ``lend`` gives the parser the host planes it will hand over (a
-    ``lender`` of load_ply_gaussians): on a card pinned memory from torch's
-    caching host allocator, whose blocks come back pinned and faulted in
-    from one conversion to the next; on the CPU np.empty.  A plane it lent
-    comes back final (its colours quantised in the parse) and is handed
-    over in place: on a card its upload is enqueued with
-    ``non_blocking=True`` on a side stream, on the CPU it becomes a tensor
-    sharing its memory.  Any other plane (the .splat parser's, a direct
-    caller's) is quantised and copied into pinned memory first.  ``scene()``
-    makes the current stream wait for the uploads and returns the scene;
-    the pinned sources are kept until then (and torch's host allocator
-    reuses none of their blocks before its copy has finished).  The span
-    ``plane_upload`` sums the host seconds of every plane's hand-off;
-    ``in_place`` and ``copied`` count the planes handed over each way."""
+    def __init__(self, device: torch.device):
+        self.pin = device.type == "cuda"
+        self.tensors: dict = {}
 
-    def __init__(self, device, compact_colours: bool = False, with_shs: bool = False):
-        self.device = torch.device(device)
-        self.compact_colours = compact_colours
-        self.with_shs = with_shs
-        self.planes: dict = {}
-        self.in_place = self.copied = 0
-        self._lent: dict = {}
-        self._pinned: list = []
-        self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
-
-    def lend(self, name: str, shape) -> np.ndarray:
-        """A float32 host plane of ``shape`` for the parser to fill, kept to
-        be handed over as ``name`` (a plane this upload drops is not)."""
-        if name == "shs" and not self.with_shs:
-            return np.empty(shape, np.float32)
-        if self._stream is None:
-            plane = np.empty(shape, np.float32)
-            source = torch.from_numpy(plane)
-        else:
-            source = torch.empty(shape, dtype=torch.float32, pin_memory=True)
-            plane = source.numpy()
-        self._lent[name] = (plane, source)
-        return plane
-
-    def __call__(self, name: str, array: np.ndarray) -> None:
-        if name == "shs" and not self.with_shs:
-            return
-        with log.span("plane_upload"):
-            plane, source = self._lent.pop(name, (None, None))
-            if plane is array:
-                self.in_place += 1
-            else:
-                self.copied += 1
-                source = self._copy(name, array)
-            if self._stream is None:
-                self.planes[name] = source
-                return
-            self._pinned.append(source)
-            with torch.cuda.stream(self._stream):
-                self.planes[name] = source.to(self.device, non_blocking=True)
-
-    def _copy(self, name: str, array: np.ndarray) -> torch.Tensor:
-        """A host tensor of a plane not lent: pinned on a card."""
-        if name == "colours" and self.compact_colours:
-            array = quantise_colours_u8(array)
-        host = np.require(array, np.float32, ["C", "W"])
-        if self._stream is None:
-            return torch.as_tensor(host, device=self.device)
-        pinned = torch.empty(host.shape, dtype=torch.float32, pin_memory=True)
-        pinned.numpy()[...] = host
-        return pinned
-
-    def scene(self) -> Gaussians:
-        """The planes as a Gaussians with every row kept, usable on the
-        current stream; logs how the planes were handed over."""
-        log.info(f"[gs2pc_torch] plane upload: {self.in_place} planes in place, "
-                 f"{self.copied} copied")
-        p = self.planes
-        if self._stream is not None:
-            current = torch.cuda.current_stream(self.device)
-            current.wait_stream(self._stream)
-            for t in p.values():
-                t.record_stream(current)
-            self._pinned.clear()
-        self._lent.clear()
-        return Gaussians(
-            xyz=p["xyz"], log_scales=p["log_scales"], rots=p["rots"],
-            opacities=p["opacities"].reshape(-1), colours=p["colours"], shs=p.get("shs"),
-            normals=None,
-            keep_mask=torch.ones(p["xyz"].shape[0], dtype=torch.bool, device=self.device),
-        )
+    def __call__(self, name: str, shape) -> np.ndarray:
+        plane = torch.empty(shape, dtype=torch.float32, pin_memory=self.pin)
+        self.tensors[name] = plane
+        return plane.numpy()
 
 
 def load_gaussians(
@@ -385,22 +301,41 @@ def load_gaussians(
     With ``compact_colours`` the colour plane is quantised to 8 bits per
     channel before the upload, as in the JAX loader.  The SH coefficients
     of an SH scene are uploaded only ``with_shs`` (--sh_colour_eval): a
-    degree-3 scene of 3M Gaussians carries 576 MB of them.  A .ply scene is
-    parsed into the planes PlaneUpload lends, and handed over in place; a
-    .splat scene's planes, which its parser makes, are copied."""
+    degree-3 scene of 3M Gaussians carries 576 MB of them.
+
+    The scene is parsed into host planes allocated here (_HostPlanes): a
+    .ply by load_ply_gaussians, a .splat by load_splat_gaussians and then
+    copied in.  Each plane's upload is then enqueued on the current stream
+    (non-blocking from pinned memory on a card; off a card the tensor is
+    the plane itself), which orders it before every later use, and torch's
+    host allocator reuses no pinned block before its copy has finished.
+    The span ``plane_upload`` times the enqueues, and a .splat's copy into
+    its planes."""
     ext = os.path.splitext(input_path)[1]
     if ext not in (".splat", ".ply"):
         raise ValueError(f"Unsupported input type {ext}")
-    upload = PlaneUpload(device, compact_colours=compact_colours, with_shs=with_shs)
+    device = torch.device(device)
+    host = _HostPlanes(device)
     with log.phase("scene_parse"):
         if ext == ".splat":
             xyz, log_scales, rots, colours, opacities, _ = load_splat_gaussians(input_path)
-            for name, plane in (("xyz", xyz), ("opacities", opacities),
-                                ("colours", colours), ("log_scales", log_scales),
-                                ("rots", rots)):
-                upload(name, plane)
+            with log.span("plane_upload"):
+                for name, array in (("xyz", xyz), ("opacities", opacities),
+                                    ("colours", colours), ("log_scales", log_scales),
+                                    ("rots", rots)):
+                    host(name, array.shape)[...] = array
+                if compact_colours:
+                    _quantise_u8(host.tensors["colours"].numpy())
         else:
-            load_ply_gaussians(input_path, max_sh_degree=max_sh_degree, plane_hook=upload,
-                               with_shs=with_shs, lender=upload)
+            load_ply_gaussians(input_path, max_sh_degree=max_sh_degree, with_shs=with_shs,
+                               alloc=host, compact_colours=compact_colours)
+        with log.span("plane_upload"):
+            p = {name: plane.to(device, non_blocking=True)
+                 for name, plane in host.tensors.items()}
     with log.phase("scene_upload"):
-        return upload.scene()
+        return Gaussians(
+            xyz=p["xyz"], log_scales=p["log_scales"], rots=p["rots"],
+            opacities=p["opacities"].reshape(-1), colours=p["colours"], shs=p.get("shs"),
+            normals=None, keep_mask=torch.ones(p["xyz"].shape[0], dtype=torch.bool,
+                                               device=device),
+        )

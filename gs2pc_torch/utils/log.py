@@ -83,9 +83,10 @@ def trace_range(name: str):
 @contextlib.contextmanager
 def span(name: str) -> Iterator[None]:
     """Add the host-clock seconds of the block to PHASE_SECONDS[name], from
-    any thread, without synchronising the card (a synchronise would wait
-    for the uploads a side stream runs meanwhile); a profiler range too
-    while a profiler records (trace_range)."""
+    any thread, without synchronising the card (a span times the host's
+    work, such as a parse thread's or the enqueue of an upload; the phase
+    around it waits for the card); a profiler range too while a profiler
+    records (trace_range)."""
     start = time.perf_counter()
     with trace_range(name):
         yield

@@ -850,31 +850,25 @@ def test_k5_output_streams_without_a_sync(cuda, tmp_path):
 
 
 @pytest.mark.parametrize("case", ["rgb", "rgb_compact", "sh", "sh_with_shs", "sh_compact",
-                                  "splat"])
+                                  "splat", "splat_compact"])
 def test_hooked_upload_equals_from_numpy_on_card(cuda, tmp_path, monkeypatch, case):
-    """load_gaussians on the card (a .ply parsed into the pinned planes its
-    upload lends, each uploaded from there in place once the parse has
-    ended; the .splat's copied into pinned memory after it) gives
-    from_numpy's scene of the parsed arrays bit for bit, usable on the
-    current stream without a synchronise."""
+    """load_gaussians on the card (a .ply parsed into the pinned host
+    planes it allocates, a .splat copied into them after its parse, each
+    uploaded from there once the parse has ended) gives from_numpy's scene
+    of the parsed arrays bit for bit, usable on the current stream without
+    a synchronise."""
     from gs2pc_torch.io import gaussians_io
     from gs2pc_torch.io.splat import load_splat_gaussians, save_splat
 
-    uploads, pinned = [], []
-    up = gaussians_io.PlaneUpload
-    real_init, real_lend = up.__init__, up.lend
+    pinned = []
+    real = gaussians_io._HostPlanes.__call__
 
-    def init(self, *args, **kwargs):
-        uploads.append(self)
-        real_init(self, *args, **kwargs)
-
-    def lend(self, name, shape):
-        plane = real_lend(self, name, shape)
-        pinned.append((name, torch.from_numpy(plane).is_pinned()))
+    def alloc(self, name, shape):
+        plane = real(self, name, shape)
+        pinned.append((name, self.tensors[name].is_pinned()))
         return plane
 
-    monkeypatch.setattr(up, "__init__", init)
-    monkeypatch.setattr(up, "lend", lend)
+    monkeypatch.setattr(gaussians_io._HostPlanes, "__call__", alloc)
 
     a = capture.make_scene_arrays(50_000, seed=15)
     kind = case.split("_")[0]
@@ -888,15 +882,9 @@ def test_hooked_upload_equals_from_numpy_on_card(cuda, tmp_path, monkeypatch, ca
     compact, with_shs = case.endswith("compact"), case.endswith("with_shs")
     got = gaussians_io.load_gaussians(path, compact_colours=compact, with_shs=with_shs,
                                       device=cuda)
-    (upload,) = uploads
-    if kind == "splat":
-        assert pinned == [] and (upload.in_place, upload.copied) == (0, 5)
-    else:
-        names = ["xyz", "opacities", "colours"] + ["shs"] * with_shs + [
-            "log_scales", "rots"]
-        assert [n for n, _ in pinned] == names
-        assert all(p for _, p in pinned), pinned
-        assert (upload.in_place, upload.copied) == (5 + with_shs, 0)
+    names = ["xyz", "opacities", "colours"] + ["shs"] * with_shs + ["log_scales", "rots"]
+    assert [n for n, _ in pinned] == names
+    assert all(p for _, p in pinned), pinned
     parsed = (load_splat_gaussians(path) if kind == "splat"
               else gaussians_io.load_ply_gaussians(path))
     xyz, ls, rots, cols, op, shs = parsed

@@ -4,7 +4,8 @@ for bit on every layout, with blocks cut small so the last one is partial
 and, where the machine has the cores, spread over threads; the records
 reader for ascii; a short file; a conversion's load without the SH
 coefficients, which skips the f_rest copy; and a conversion's load into
-the planes its upload lends, handed over in place."""
+the host planes it allocates, each scene tensor on its plane's memory off
+a card."""
 
 import numpy as np
 import pytest
@@ -131,24 +132,16 @@ def test_a_short_file_raises(tmp_path, monkeypatch, workers, cut):
         gaussians_io.load_ply_gaussians(path)
 
 
-def test_load_without_shs_skips_the_rest(tmp_path, monkeypatch, parse_lines):
+def test_load_without_shs_skips_the_rest(tmp_path, monkeypatch, parse_lines, handover):
     """load_gaussians(with_shs=False) on an SH export: no shs, no "shs"
-    handed to the upload, the f_rest copy skipped but its span entered, and
-    the blocks reader taken."""
+    plane allocated, the f_rest copy skipped but its span entered, and the
+    blocks reader taken."""
     path = write_ply(tmp_path / "scene.ply", layout("inria_sh3")[0], ROWS)
     monkeypatch.setattr(gaussians_io, "BLOCK_ROWS", BLOCK)
-    handed = []
-    real = gaussians_io.PlaneUpload.__call__
-
-    def spy(self, name, array):
-        handed.append(name)
-        return real(self, name, array)
-
-    monkeypatch.setattr(gaussians_io.PlaneUpload, "__call__", spy)
     log.reset_phases()
     g = gaussians_io.load_gaussians(path, with_shs=False, device="cpu")
     assert g.shs is None
-    assert handed == ["xyz", "opacities", "colours", "log_scales", "rots"]
+    assert list(handover) == ["xyz", "opacities", "colours", "log_scales", "rots"]
     assert "ply_sh_rest" in log.PHASE_SECONDS
     assert parse_lines[0] == ("[gs2pc_torch] ply parse: blocks reader, "
                               f"{-(-ROWS // BLOCK)} blocks, f_rest skipped")
@@ -185,27 +178,16 @@ def _levels(colours):
 
 @pytest.fixture
 def handover(monkeypatch):
-    """The planes each PlaneUpload lends and is handed, by name, and the
-    uploads made."""
-    seen = {"lent": {}, "handed": {}, "uploads": []}
-    up = gaussians_io.PlaneUpload
-    real_init, real_lend, real_call = up.__init__, up.lend, up.__call__
+    """The host planes load_gaussians allocates, by name, in the order
+    asked for."""
+    seen = {}
+    real = gaussians_io._HostPlanes.__call__
 
-    def init(self, *args, **kwargs):
-        seen["uploads"].append(self)
-        real_init(self, *args, **kwargs)
-
-    def lend(self, name, shape):
-        plane = seen["lent"][name] = real_lend(self, name, shape)
+    def alloc(self, name, shape):
+        plane = seen[name] = real(self, name, shape)
         return plane
 
-    def call(self, name, array):
-        seen["handed"][name] = array
-        return real_call(self, name, array)
-
-    monkeypatch.setattr(up, "__init__", init)
-    monkeypatch.setattr(up, "lend", lend)
-    monkeypatch.setattr(up, "__call__", call)
+    monkeypatch.setattr(gaussians_io._HostPlanes, "__call__", alloc)
     return seen
 
 
@@ -217,12 +199,11 @@ SCENE_PLANES = {"xyz": 0, "log_scales": 1, "rots": 2, "colours": 3, "opacities":
 @pytest.mark.parametrize("kind", ["inria_sh3", "sh0", "rgb_uchar_late", "rgb_uchar_dim"])
 def test_parse_into_lent_planes(tmp_path, monkeypatch, parse_lines, handover, kind, compact,
                                 workers):
-    """load_gaussians parses a .ply into the planes its upload lends and
-    hands each one over in place: every plane the JAX loader's bit for bit,
-    the colours quantised as quantise_colours_u8 quantises JAX's plane (an
-    SH scene's a block at a time, an RGB scene's after its /255), each plane
-    handed over the very array lent and the tensor on its memory, and the
-    counter at 5 in place, 0 copied."""
+    """load_gaussians parses a .ply into the host planes it allocates:
+    every plane the JAX loader's bit for bit, the colours quantised as
+    quantise_colours_u8 quantises JAX's plane (an SH scene's a block at a
+    time, an RGB scene's after its /255), and each scene tensor on the
+    memory of the plane allocated under its name."""
     props, fmt, late = layout(kind)
     path = write_ply(tmp_path / "scene.ply", props, ROWS, fmt=fmt, late_bright=late)
     monkeypatch.setattr(gaussians_io, "BLOCK_ROWS", BLOCK)
@@ -238,28 +219,27 @@ def test_parse_into_lent_planes(tmp_path, monkeypatch, parse_lines, handover, ki
         np.testing.assert_array_equal(plane, expect)
         if name == "colours" and compact:
             np.testing.assert_array_equal(plane, gaussians_io.quantise_colours_u8(want[i]))
-        assert handover["handed"][name] is handover["lent"][name], name
-        assert np.shares_memory(plane, handover["lent"][name]), name
-    assert g.shs is None and "shs" not in handover["lent"]
-    (upload,) = handover["uploads"]
-    assert (upload.in_place, upload.copied) == (5, 0)
-    assert parse_lines[-1] == "[gs2pc_torch] plane upload: 5 planes in place, 0 copied"
+        assert np.shares_memory(plane, handover[name]), name
+    assert g.shs is None and list(handover) == ["xyz", "opacities", "colours", "log_scales",
+                                                "rots"]
+    assert parse_lines == ["[gs2pc_torch] ply parse: blocks reader, "
+                           f"{-(-ROWS // BLOCK)} blocks, f_rest skipped"]
 
 
 def test_parse_into_lent_planes_with_shs(tmp_path, monkeypatch, handover):
-    """with_shs the SH plane is lent and handed over in place too."""
+    """with_shs the SH plane is allocated and the scene's shs is on it."""
     path = write_ply(tmp_path / "scene.ply", layout("inria_sh3")[0], ROWS)
     monkeypatch.setattr(gaussians_io, "BLOCK_ROWS", BLOCK)
     g = gaussians_io.load_gaussians(path, with_shs=True, compact_colours=True, device="cpu")
     np.testing.assert_array_equal(g.shs.numpy(), jax_ply.load_ply_gaussians(path)[5])
-    assert handover["handed"]["shs"] is handover["lent"]["shs"]
-    (upload,) = handover["uploads"]
-    assert (upload.in_place, upload.copied) == (6, 0)
+    assert np.shares_memory(g.shs.numpy(), handover["shs"])
+    assert list(handover) == ["xyz", "opacities", "colours", "shs", "log_scales", "rots"]
 
 
 def test_splat_planes_are_copied(tmp_path, parse_lines, handover):
-    """A .splat scene's planes, which its parser makes, are quantised and
-    copied: 0 in place, 5 copied, nothing lent."""
+    """A .splat scene's planes, which its parser makes, are copied into the
+    host planes load_gaussians allocates, the colours quantised there; the
+    scene tensors are on those planes, and no log line is written."""
     from gs2pc_torch.io.splat import load_splat_gaussians, save_splat
 
     r = np.random.default_rng(9)
@@ -273,8 +253,9 @@ def test_splat_planes_are_copied(tmp_path, parse_lines, handover):
     g = gaussians_io.load_gaussians(path, compact_colours=True, device="cpu")
     want = load_splat_gaussians(path)
     np.testing.assert_array_equal(g.colours.numpy(), _levels(want[3]))
-    np.testing.assert_array_equal(g.xyz.numpy(), want[0])
-    assert handover["lent"] == {}
-    (upload,) = handover["uploads"]
-    assert (upload.in_place, upload.copied) == (0, 5)
-    assert parse_lines == ["[gs2pc_torch] plane upload: 0 planes in place, 5 copied"]
+    for name, i in SCENE_PLANES.items():
+        if name != "colours":
+            np.testing.assert_array_equal(getattr(g, name).numpy(), want[i])
+        assert np.shares_memory(getattr(g, name).numpy(), handover[name]), name
+    assert list(handover) == ["xyz", "opacities", "colours", "log_scales", "rots"]
+    assert parse_lines == []

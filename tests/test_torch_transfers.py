@@ -2,9 +2,10 @@
 LazyPointCloud (points stay on the device; the PLY writer pulls them a
 chunk at a time) against gs2pc.pipeline.LazyPointCloud, its streamed PLY
 bytes against the JAX writer's and the eager writer's, the native chunked
-session against the one-shot expand-writer, the loader's plane hook
-against gs2pc.io.ply.load_ply_gaussians', and the one slot prefix a
-sampling computes.  On CPU tensors the lazy cloud's chunks are slices of
+session against the one-shot expand-writer, the loader's planes, each
+filled in the array its allocator gave, against
+gs2pc.io.ply.load_ply_gaussians', and the one slot prefix a sampling
+computes.  On CPU tensors the lazy cloud's chunks are slices of
 its points; tests/test_torch_cuda.py runs the pinned, double-buffered
 copies on a card."""
 
@@ -27,6 +28,7 @@ from gs2pc_torch.ops import sampler as S
 from gs2pc_torch.utils import capture
 from gs2pc_torch.utils.config import GaussPointCloudSettings
 from tests.fixture_scene import write_capture
+from tests.test_torch_ply_blocks import write_ply
 
 torch.set_num_threads(1)
 
@@ -192,32 +194,48 @@ def scenes(tmp_path_factory):
     return {"rgb": rgb, "sh": paths["ply"], "splat": splat}
 
 
+class _Alloc:
+    """An ``alloc`` for load_ply_gaussians: NaN-filled float32 planes (so a
+    row left unfilled shows), kept by name in the order asked for."""
+
+    def __init__(self):
+        self.given = {}
+
+    def __call__(self, name, shape):
+        plane = self.given[name] = np.full(shape, np.nan, np.float32)
+        return plane
+
+
+PLANE_NAMES = ("xyz", "log_scales", "rots", "colours", "opacities", "shs")
+
+
 @pytest.mark.parametrize("kind", ["rgb", "sh"])
 def test_plane_hook_matches_jax(scenes, kind):
-    """The port's loader hands the hook JAX's planes, by JAX's names, in
-    JAX's order, the moment each is final, and returns what it returned
-    without a hook."""
-    seen = {"ours": [], "jax": []}
-
-    def spy(side):
-        return lambda name, array: seen[side].append((name, np.array(array)))
-
-    got = gaussians_io.load_ply_gaussians(scenes[kind], plane_hook=spy("ours"))
-    jax_ply.load_ply_gaussians(scenes[kind], plane_hook=spy("jax"))
-    names = [n for n, _ in seen["ours"]]
-    assert names == [n for n, _ in seen["jax"]]
-    assert names == (["xyz", "opacities", "colours", "shs", "log_scales", "rots"] if kind == "sh"
-                     else ["xyz", "opacities", "colours", "log_scales", "rots"])
-    for (_, a), (_, b) in zip(seen["ours"], seen["jax"]):
-        assert a.dtype == b.dtype
+    """The port's loader returns JAX's planes, each one the very array
+    ``alloc`` gave for its name, asked for by JAX's names in the order
+    JAX's hook gets them, and equal to what it returns without ``alloc``."""
+    alloc = _Alloc()
+    got = gaussians_io.load_ply_gaussians(scenes[kind], alloc=alloc)
+    hooked = []
+    want = jax_ply.load_ply_gaussians(scenes[kind],
+                                      plane_hook=lambda name, array: hooked.append(name))
+    assert list(alloc.given) == hooked
+    assert hooked == (["xyz", "opacities", "colours", "shs", "log_scales", "rots"]
+                      if kind == "sh" else ["xyz", "opacities", "colours", "log_scales", "rots"])
+    for name, a, b in zip(PLANE_NAMES, got, want):
+        if b is None:
+            assert a is None and name not in alloc.given, name
+            continue
+        assert a is alloc.given[name], name
+        assert a.dtype == b.dtype and a.shape == b.shape, name
         np.testing.assert_array_equal(a, b)
     for a, b in zip(got, gaussians_io.load_ply_gaussians(scenes[kind])):
         np.testing.assert_array_equal(a, b)
 
 
 def _today(path, compact, with_shs):
-    """The scene as the loader made it before the hook: parse everything,
-    then Gaussians.from_numpy."""
+    """The scene from the parsed arrays: parse everything, then
+    Gaussians.from_numpy."""
     if path.endswith(".splat"):
         from gs2pc_torch.io.splat import load_splat_gaussians
 
@@ -256,17 +274,30 @@ def test_hooked_load_equals_from_numpy(scenes, case):
         assert got.shs.shape[1:] == (3, 16)
 
 
-def test_plane_upload_skips_shs_and_quantises():
-    """PlaneUpload keeps the SH plane only with_shs and quantises colours
-    as quantise_colours_u8 does."""
-    r = np.random.default_rng(6)
-    cols = r.uniform(-0.1, 1.1, (50, 3)).astype(np.float32)
-    up = gaussians_io.PlaneUpload("cpu", compact_colours=True)
-    up("colours", cols)
-    up("shs", np.zeros((50, 3, 4), np.float32))
-    assert set(up.planes) == {"colours"}
-    np.testing.assert_array_equal(up.planes["colours"].numpy(),
-                                  gaussians_io.quantise_colours_u8(cols))
+def test_plane_upload_skips_shs_and_quantises(tmp_path):
+    """A degree-1 SH .ply with no opacity, scale_* or rot* fields, loaded
+    without its SH coefficients and with compact colours: every plane comes
+    from ``alloc``, no shs plane is asked for, the planes the file has no
+    fields for hold the JAX loader's constants (opacity 1, log-scale -8,
+    the unit quaternion), and the colours are quantise_colours_u8 of
+    JAX's."""
+    props = [(p, "float") for p in ["x", "y", "z", "f_dc_0", "f_dc_1", "f_dc_2"]
+             + [f"f_rest_{i}" for i in range(9)]]
+    path = write_ply(tmp_path / "bare.ply", props, 50, seed=6)
+    alloc = _Alloc()
+    got = gaussians_io.load_ply_gaussians(path, max_sh_degree=1, with_shs=False, alloc=alloc,
+                                          compact_colours=True)
+    want = jax_ply.load_ply_gaussians(path, max_sh_degree=1)
+    assert list(alloc.given) == ["xyz", "opacities", "colours", "log_scales", "rots"]
+    assert got[5] is None
+    for name, a, b in zip(PLANE_NAMES[:5], got, want):
+        assert a is alloc.given[name], name
+        expect = gaussians_io.quantise_colours_u8(b) if name == "colours" else b
+        assert a.dtype == expect.dtype and a.shape == expect.shape, name
+        np.testing.assert_array_equal(a, expect)
+    np.testing.assert_array_equal(got[4], np.ones(50, np.float32))
+    np.testing.assert_array_equal(got[1], np.full((50, 3), -8.0, np.float32))
+    np.testing.assert_array_equal(got[2], np.tile(np.float32([[1, 0, 0, 0]]), (50, 1)))
 
 
 def _small_scene(n=200, seed=7):
