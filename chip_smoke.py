@@ -412,30 +412,41 @@ def k2_bound(prep, n_pairs: int):
     arguments: per Gaussian xy 8 B, r_alpha_sq 4, rect_min 8, rect_max 8,
     valid 1 and depth 4 read once; per pair an int64 key and an int32 gid
     written.  Full-rect mode runs no circle test, so no float operations
-    bound it."""
+    bound it.  This is the count the benchmark's k2_roofline_pct keeps
+    (benchmarks/gsbench/roofline.py, held to this function by its tests):
+    the depth-first K2 reads order in depth's place and writes an int32
+    tile id in the key's, 8 B a pair, so the bound is 4 B a pair high."""
     n_bytes = 33 * prep.xy.shape[0] + 12 * n_pairs
     return 1e3 * n_bytes / HBM_BYTES_PER_S, "bytes"
 
 
 def check_k2(prep, cfg, circle_cull: bool, label: str) -> int:
-    """Hold K2 to its twin before the sort (same pair at the same index) and
-    after it; fail on any difference, return the pair count."""
+    """Hold the depth sort and K2 to their twins before the tile sort (the
+    same order, the same pair at the same index), and order_pairs to the
+    twin chain (the int64 key sort and gid gather: sorted gids, tile starts
+    and runs); fail on any difference, return the pair count."""
     import torch
 
     from gs2pc_torch.ops import rasterize as R
 
-    uk, ug = R.duplicate_with_keys(prep, cfg, circle_cull=circle_cull)
-    tk, tg = R.duplicate_with_keys_torch(prep, cfg, circle_cull=circle_cull)
+    order = R.depth_order(prep.depth, prep.valid)
+    cpu = type(prep)(*(t.cpu() for t in prep))
+    if not torch.equal(order.cpu(), R.depth_order(cpu.depth, cpu.valid)):
+        fail(f"the depth sort disagrees with its twin ({label})")
+    ut, ug = R.duplicate_with_keys(prep, cfg, circle_cull, order)
+    tt, tg = R.duplicate_with_keys(cpu, cfg, circle_cull, order.cpu())
     torch.cuda.synchronize()
-    if not (torch.equal(uk, tk) and torch.equal(ug, tg)):
-        fail(f"K2 disagrees with its twin before the sort ({label}): "
-             f"{uk.numel()} vs {tk.numel()} pairs")
-    sk, sg = R.sort_pairs(uk, ug)
-    stk, stg = R.sort_pairs(tk, tg)
+    if not (torch.equal(ut.cpu(), tt) and torch.equal(ug.cpu(), tg)):
+        fail(f"K2 disagrees with its twin before the tile sort ({label}): "
+             f"{ut.numel()} vs {tt.numel()} pairs")
+    st, sg = R.order_pairs(prep, cfg, circle_cull)
+    tk, tg = R.sort_pairs(*R.duplicate_with_keys_torch(prep, cfg, circle_cull))
+    ranges = R.tile_ranges(st, cfg.num_tiles)
+    want = R.tile_ranges((tk >> 32).to(torch.int32), cfg.num_tiles)
     torch.cuda.synchronize()
-    if not (torch.equal(sk, stk) and torch.equal(sg, stg)):
-        fail(f"K2 disagrees with its twin after the sort ({label})")
-    return uk.numel()
+    if not (torch.equal(sg, tg) and all(torch.equal(a, b) for a, b in zip(ranges, want))):
+        fail(f"order_pairs disagrees with the int64 key sort ({label})")
+    return ut.numel()
 
 
 def phase_k2(device):
@@ -452,9 +463,9 @@ def phase_k2(device):
         prep = preprocess(g.xyz, g.covariance_factors(), g.opacities, g.keep_mask, cam,
                           adaptive_radius=not surface)
         n_pairs.append(check_k2(prep, cfg, not surface, f"200k Gaussians, surface={surface}"))
-    print(f"K2 vs twin: 200k Gaussians, 1280x720: keys and gids equal exactly before and "
-          f"after the sort ({n_pairs[0]} pairs full-rect, {n_pairs[1]} pairs circle-culled)",
-          flush=True)
+    print(f"K2 vs twin: 200k Gaussians, 1280x720: tile ids and gids equal exactly before the "
+          f"tile sort, and after it the int64 key sort's order ({n_pairs[0]} pairs full-rect, "
+          f"{n_pairs[1]} pairs circle-culled)", flush=True)
 
 
 def compare_k1(k, t, label: str) -> float:
@@ -597,6 +608,7 @@ def reset_launches() -> None:
 
     B.blend_tiles.launches = 0
     R.duplicate_with_keys.launches = 0
+    R.order_pairs.launches = 0
     S.sample_points.launches = 0
     PJ.project_and_pack.launches = 0
     PJ.preprocess.launches = 0
@@ -605,7 +617,7 @@ def reset_launches() -> None:
 
 
 def read_launches() -> dict:
-    """K1's, K2's, K5's and K6's launches since reset_launches(), this
+    """K1's, K2's, the key sorts', K5's and K6's launches since reset_launches(), this
     process's and those of the ranks it spawned (one process per card of a
     multi-card conversion) together (K6's: "project_and_pack" with its
     table, "preprocess" without); and this process's calls of K6's twin
@@ -640,10 +652,11 @@ def cli_ranks(sweeps: bool = True) -> int:
 
 
 def conversion_launches(n_cams: int, samplings: int, sweeps: bool = True) -> dict:
-    """K1, K2, K5 and K6 launches of a CLI conversion over all its ranks: one
-    K1, two K2 and one K6 (with its table) a camera, one K5 a sampling on
-    every rank; no K6 without a table and no call of K6's twin."""
-    return {"blend_tiles": n_cams, "duplicate_with_keys": 2 * n_cams,
+    """K1, K2, key sort, K5 and K6 launches of a CLI conversion over all its
+    ranks: one K1, two K2, two sorts and one K6 (with its table) a camera,
+    one K5 a sampling on every rank; no K6 without a table and no call of
+    K6's twin."""
+    return {"blend_tiles": n_cams, "duplicate_with_keys": 2 * n_cams, "order_pairs": 2 * n_cams,
             "sample_points": samplings * cli_ranks(sweeps), "project_and_pack": n_cams,
             "preprocess": 0, "preprocess_torch": 0}
 
@@ -879,8 +892,8 @@ def phase_timing(device, arrays):
     label = f"camera 0 of the e2e scene ({n_pairs} pairs)"
 
     check_k2(prep, cfg, False, label)
-    print(f"K2 vs twin, {label}: keys and gids equal exactly before and after the sort",
-          flush=True)
+    print(f"K2 vs twin, {label}: tile ids and gids equal exactly before the tile sort, and "
+          f"after it the int64 key sort's order", flush=True)
 
     k = B.blend_tiles(*args, **kw)
     t = B.blend_tiles_torch(*args, **kw)
@@ -894,8 +907,10 @@ def phase_timing(device, arrays):
           f"{kw['run_chunk']}, {int((ch > 0).sum())} of {ch.numel()} tiles entered)", flush=True)
     del k, t
 
+    order = R.depth_order(prep.depth, prep.valid)
+
     def k2():
-        return R.duplicate_with_keys(prep, cfg, False)
+        return R.duplicate_with_keys(prep, cfg, False, order)
 
     def k1():
         return B.blend_tiles(*args, **kw)
@@ -910,6 +925,7 @@ def phase_timing(device, arrays):
         "blend_tiles_torch": cuda_ms(lambda: B.blend_tiles_torch(*args, **kw), 1),
         "k2_count": k2_launch[K2_ENTRIES[0]],
         "k2_write": k2_launch[K2_ENTRIES[1]],
+        "order_pairs": cuda_ms(lambda: R.order_pairs(prep, cfg, False), 5),
     }
     ms["k2_scan_sync"] = ms["duplicate_with_keys"] - ms["k2_count"] - ms["k2_write"]
     print(f"timing, {label}: K1 launch alone {ms['blend_tiles_launch']:.4f} ms, through the "
@@ -919,7 +935,8 @@ def phase_timing(device, arrays):
           f"{ms['k2_count']:.4f} ms, scan + sync {ms['k2_scan_sync']:.4f} ms, write "
           f"{ms['k2_write']:.4f} ms, through the wrapper {ms['duplicate_with_keys']:.4f} ms, twin "
           f"{ms['duplicate_with_keys_torch']:.3f} ms, bound "
-          f"{bounds['duplicate_with_keys'][0]:.4f} ms (bytes)", flush=True)
+          f"{bounds['duplicate_with_keys'][0]:.4f} ms (bytes); the depth sort, K2 and the tile "
+          f"sort through order_pairs {ms['order_pairs']:.4f} ms", flush=True)
     return ms, bounds, k1_err
 
 
@@ -1318,9 +1335,9 @@ def phase_sharded(device, arrays):
     for i in range(cams.num_cameras):
         prep = preprocess(g.xyz, g.covariance_factors(), g.opacities, g.keep_mask, cams.at(i),
                           adaptive_radius=False)
-        keys, _ = R.sort_pairs(*R.duplicate_with_keys(prep, probe, circle_cull=False))
-        longest = max(longest, int(R.tile_ranges(keys, probe.num_tiles)[1].max()))
-        del keys, prep
+        tiles, _ = R.order_pairs(prep, probe, circle_cull=False)
+        longest = max(longest, int(R.tile_ranges(tiles, probe.num_tiles)[1].max()))
+        del tiles, prep
     render = RenderConfig(max_pairs_per_tile=longest + 1, compact_pairs=True,
                           surface_compact=False)
     cfg = pipeline.tile_config(GaussPointCloudSettings(render=render),
@@ -1544,9 +1561,9 @@ def phase_oracle(device):
     blk = min(1 << 16, npx)
     evals = -(-npx // blk) * blk * -(-n_valid // 256) * 256
     prep = preprocess(*scene[:3], scene.alive, cam, adaptive_radius=False)
-    keys, _ = R.sort_pairs(*R.duplicate_with_keys(prep, cfg, circle_cull=False))
-    longest = int(R.tile_ranges(keys, cfg.num_tiles)[1].max())
-    del keys, prep
+    tiles, _ = R.order_pairs(prep, cfg, circle_cull=False)
+    longest = int(R.tile_ranges(tiles, cfg.num_tiles)[1].max())
+    del tiles, prep
     exact_cfg = V.tile_config(cams.width_pad, cams.height_pad, production=False,
                               run_cap=longest + 1)
     exact = V.compare(R.render_tile_camera(*scene, cam, exact_cfg, calc_surface_distance=False),
@@ -1931,10 +1948,11 @@ def phase_covariances(device):
 
 
 def launched() -> dict:
-    """K1, K2, K5 and K6 launches since reset_launches() (K6 with its
-    table; "K6 alone" without), and the calls of K6's twin."""
+    """K1, K2, key sort, K5 and K6 launches since reset_launches() (K6 with
+    its table; "K6 alone" without), and the calls of K6's twin."""
     got = read_launches()
     return {"K1": got["blend_tiles"], "K2": got["duplicate_with_keys"],
+            "sorts": got["order_pairs"],
             "K5": got["sample_points"], "K6": got["project_and_pack"],
             "K6 alone": got["preprocess"], "twin": got["preprocess_torch"]}
 
@@ -1958,7 +1976,8 @@ def phase_preview(device, work, ply, tj):
         "--device", str(device)])
     wall = time.perf_counter() - t0
     launches = launched()
-    want = {"K1": N_PREVIEW_CAMERAS, "K2": 2 * N_PREVIEW_CAMERAS, "K5": 0,
+    want = {"K1": N_PREVIEW_CAMERAS, "K2": 2 * N_PREVIEW_CAMERAS,
+            "sorts": 2 * N_PREVIEW_CAMERAS, "K5": 0,
             "K6": N_PREVIEW_CAMERAS, "K6 alone": 0, "twin": 0}
     if launches != want or len(written) != 2 * N_PREVIEW_CAMERAS:
         fail(f"preview: launches {launches} (expected {want}), {len(written)} files written")
@@ -2051,9 +2070,9 @@ def phase_splits(device, arrays):
     for i in range(cams.num_cameras):
         prep = preprocess(g.xyz, g.covariance_factors(), g.opacities, g.keep_mask, cams.at(i),
                           adaptive_radius=False)
-        keys, _ = R.sort_pairs(*R.duplicate_with_keys(prep, probe, circle_cull=False))
-        longest = max(longest, int(R.tile_ranges(keys, probe.num_tiles)[1].max()))
-        del keys, prep
+        tiles, _ = R.order_pairs(prep, probe, circle_cull=False)
+        longest = max(longest, int(R.tile_ranges(tiles, probe.num_tiles)[1].max()))
+        del tiles, prep
     render = RenderConfig(max_pairs_per_tile=longest + 1, compact_pairs=True,
                           surface_compact=False)
     cfg = pipeline.tile_config(GaussPointCloudSettings(render=render),
@@ -2285,7 +2304,8 @@ def spmd_cli(device, e2e, work, n_cards: int) -> dict:
         wall = time.perf_counter() - t0
         phases = {k: round(v, 4) for k, v in log.PHASE_SECONDS.items()}
         launches, by_rank = launched(), launches_by_rank()
-        want = {"K1": want_k1, "K2": 2 * want_k1, "K5": n_cards, "K6": want_k1,
+        want = {"K1": want_k1, "K2": 2 * want_k1, "sorts": 2 * want_k1, "K5": n_cards,
+                "K6": want_k1,
                 "K6 alone": 0, "twin": 0}
         if launches != want or len(by_rank) != n_cards:
             fail(f"spmd CLI {label}: launches {launches} over {len(by_rank)} ranks "
@@ -2406,6 +2426,7 @@ def phase_bench(work) -> dict:
     # the gate's one tile render; the gate's oracle launches K6 without a
     # table, once a band.
     want = {"blend_tiles": 2 * n_cams + 1, "duplicate_with_keys": 2 * 2 * n_cams + 2,
+            "order_pairs": 2 * 2 * n_cams + 2,
             "sample_points": 2, "project_and_pack": 2 * n_cams + 1, "preprocess_torch": 0}
     if {k: launches[k] for k in want} != want or launches["preprocess"] < 1:
         fail(f"bench: kernel launches {launches}, expected {want} and K6 without a table "

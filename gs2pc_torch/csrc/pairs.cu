@@ -6,30 +6,33 @@
 // pair count is known exactly from a prefix sum of the per-Gaussian
 // counts, so there is no budget, no waterfill and no window.
 //
-// Two launches per camera:
+// Two launches per camera, after the depth sort (csrc/sort.cu) has put the
+// Gaussians in rank order (order[r] is the gid of rank r):
 //   count_pairs  one thread per Gaussian: the number of rect tiles it
 //                emits (the full rect, or in non-surface mode the tiles
-//                that pass the AdR circle-vs-tile cull);
-//   write_pairs  at O(g) (the exclusive prefix sum of the counts, read from
-//                the inclusive one, ends) one int64 key
-//                (tile_id << 32) | float_bits(depth) and one int32 gid per
-//                emitted tile, rect row-major.
-// Either way every pair lands at the same index: gid-major, rect row-major
-// within a Gaussian, which the PyTorch twin's unsorted order is too.
+//                that pass the AdR circle-vs-tile cull), by gid;
+//   write_pairs  at O(r) (the exclusive prefix sum of the counts taken in
+//                rank order, read from the inclusive one, ends) one int32
+//                tile id ty * grid_w + tx and one int32 gid per tile that
+//                Gaussian order[r] emits, rect row-major.
+// Either way every pair lands at the same index: rank-major, rect
+// row-major within a Gaussian, which the PyTorch twin's order moved to rank
+// order (rasterize.duplicate_with_keys on CPU tensors) is too.  The tile
+// sort after it then needs the tile id alone as its key.
 //
-// What bounds write_pairs: device-memory writes of 12 bytes per pair (the
-// reads are ~24 bytes per Gaussian).  In full-rect mode (the main path's
-// surface mode) it is pair-parallel, so a screen-sized splat no longer
-// serialises its thousands of writes in one thread and every write is
-// coalesced: each block takes a span of K2_ITEMS items of the merge of the
-// Gaussians' start offsets with the pair indices (merge path, as a
-// load-balanced search), so it holds at most K2_ITEMS pairs and Gaussians
-// together however the pairs are spread.  Two warps find the span's ends
-// with a 32-way search over ends; the block stages its Gaussians' offsets,
-// rects and depth bits in shared memory; each thread maps its pairs to
-// (gid, k) by a binary search there and to (tx, ty) = rect_min + (k mod w,
-// k div w).  In circle-cull mode (off the main path) a thread walks one
-// Gaussian's rect, as before: both passes call the same tile_hit() test,
+// What bounds write_pairs: device-memory writes of 8 bytes per pair (the
+// reads are ~33 bytes per Gaussian, each rank's inputs gathered through
+// order).  In full-rect mode (the main path's surface mode) it is
+// pair-parallel, so a screen-sized splat no longer serialises its
+// thousands of writes in one thread and every write is coalesced: each
+// block takes a span of K2_ITEMS items of the merge of the ranks' start
+// offsets with the pair indices (merge path, as a load-balanced search), so
+// it holds at most K2_ITEMS pairs and Gaussians together however the pairs
+// are spread.  Two warps find the span's ends with a 32-way search over
+// ends; the block stages its ranks' offsets, rects and gids in shared
+// memory; each thread maps its pairs to (rank, k) by a binary search there
+// and to (tx, ty) = rect_min + (k mod w, k div w).  In circle-cull mode a
+// thread walks one rank's rect: both passes call the same tile_hit() test,
 // with the float operations pinned to round-to-nearest (no FMA
 // contraction), so they agree and the output equals the twin bit for bit.
 #include "common.cuh"
@@ -50,9 +53,9 @@ __device__ __forceinline__ bool tile_hit(float px, float py, float r2, int tx, i
     return __fadd_rn(__fmul_rn(ddx, ddx), __fmul_rn(ddy, ddy)) <= r2;
 }
 
-// Exclusive prefix sum of the counts at g, from the inclusive one.
-__device__ __forceinline__ int64_t start_of(const int64_t* __restrict__ ends, int g) {
-    return g > 0 ? ends[g - 1] : 0;
+// Exclusive prefix sum of the counts at rank r, from the inclusive one.
+__device__ __forceinline__ int64_t start_of(const int64_t* __restrict__ ends, int r) {
+    return r > 0 ? ends[r - 1] : 0;
 }
 
 __global__ void count_pairs_kernel(const float* __restrict__ xy,
@@ -80,35 +83,37 @@ __global__ void count_pairs_kernel(const float* __restrict__ xy,
     counts[g] = c;
 }
 
-// Circle-cull mode: one thread per Gaussian walks its rect.
+// Circle-cull mode: one thread per rank walks its Gaussian's rect.  A rank
+// whose count is 0 (every invalid Gaussian among them) stops before it
+// gathers anything through order.
 __global__ void write_pairs_cull_kernel(const float* __restrict__ xy,
                                         const float* __restrict__ r_alpha_sq,
                                         const int* __restrict__ rect_min,
                                         const int* __restrict__ rect_max,
-                                        const uint8_t* __restrict__ valid,
-                                        const float* __restrict__ depth,
+                                        const int* __restrict__ order,
                                         const int64_t* __restrict__ ends, int P, int grid_w,
-                                        int64_t* __restrict__ keys, int* __restrict__ gids) {
-    const int g = blockIdx.x * blockDim.x + threadIdx.x;
-    if (g >= P || !valid[g]) return;
+                                        int* __restrict__ tiles, int* __restrict__ gids) {
+    const int r = blockIdx.x * blockDim.x + threadIdx.x;
+    if (r >= P) return;
+    int64_t o = start_of(ends, r);
+    if (ends[r] == o) return;
+    const int g = order[r];
     const int x0 = rect_min[2 * g], y0 = rect_min[2 * g + 1];
     const int x1 = rect_max[2 * g], y1 = rect_max[2 * g + 1];
     const float px = xy[2 * g], py = xy[2 * g + 1], r2 = r_alpha_sq[g];
-    const int64_t dbits = (int64_t)__float_as_uint(depth[g]);
-    int64_t o = start_of(ends, g);
     for (int ty = y0; ty < y1; ++ty) {
         for (int tx = x0; tx < x1; ++tx) {
             if (!tile_hit(px, py, r2, tx, ty)) continue;
-            keys[o] = ((int64_t)(ty * grid_w + tx) << 32) | dbits;
+            tiles[o] = ty * grid_w + tx;
             gids[o] = g;
             ++o;
         }
     }
 }
 
-// Merge path: Gaussian g stands at g + O(g) in the merge of the start
-// offsets with the pair indices (a start before the pair at its own index).
-// Returns the number of Gaussians before merged position d, the least a in
+// Merge path: rank r stands at r + O(r) in the merge of the start offsets
+// with the pair indices (a start before the pair at its own index).
+// Returns the number of ranks before merged position d, the least a in
 // [0, P] with a == P or a + O(a) >= d; every lane of the calling warp takes
 // part and gets it.  Each round probes 32 points and keeps the gap between
 // the last probe below d and the first at or above it.
@@ -138,11 +143,11 @@ __device__ int merge_split(const int64_t* __restrict__ ends, int P, int64_t d) {
 // Full-rect mode: pair-parallel over merge-path spans.
 __global__ void __launch_bounds__(K2_THREADS) write_pairs_rect_kernel(
     const int* __restrict__ rect_min, const int* __restrict__ rect_max,
-    const float* __restrict__ depth, const int64_t* __restrict__ ends, int P, int64_t total,
-    int grid_w, int64_t* __restrict__ keys, int* __restrict__ gids) {
+    const int* __restrict__ order, const int64_t* __restrict__ ends, int P, int64_t total,
+    int grid_w, int* __restrict__ tiles, int* __restrict__ gids) {
     __shared__ int64_t s_start[K2_ITEMS + 1];
     __shared__ int s_x0[K2_ITEMS + 1], s_y0[K2_ITEMS + 1], s_w[K2_ITEMS + 1];
-    __shared__ unsigned s_dbits[K2_ITEMS + 1];
+    __shared__ int s_gid[K2_ITEMS + 1];
     __shared__ int s_split[2];
     const int64_t d0 = (int64_t)blockIdx.x * K2_ITEMS;
     const int64_t d1 = min(d0 + K2_ITEMS, (int64_t)P + total);
@@ -153,25 +158,30 @@ __global__ void __launch_bounds__(K2_THREADS) write_pairs_rect_kernel(
     }
     __syncthreads();
     const int a0 = s_split[0], a1 = s_split[1];
-    // The span's pairs belong to Gaussians a0 - 1 .. a1 - 1 (a0 - 1 may have
+    // The span's pairs belong to ranks a0 - 1 .. a1 - 1 (a0 - 1 may have
     // started in an earlier span).
-    const int g_lo = max(a0 - 1, 0);
-    const int n_g = a1 - g_lo;
-    for (int i = threadIdx.x; i < n_g; i += K2_THREADS) {
-        const int g = g_lo + i;
+    const int r_lo = max(a0 - 1, 0);
+    const int n_r = a1 - r_lo;
+    for (int i = threadIdx.x; i < n_r; i += K2_THREADS) {
+        const int r = r_lo + i;
+        s_start[i] = start_of(ends, r);
+        // A rank with no pair is never the last to start at or before a
+        // pair of the span (the next rank starts there too), so its
+        // Gaussian is not gathered.
+        if (ends[r] == s_start[i]) continue;
+        const int g = order[r];
         const int x0 = rect_min[2 * g];
-        s_start[i] = start_of(ends, g);
         s_x0[i] = x0;
         s_y0[i] = rect_min[2 * g + 1];
         s_w[i] = rect_max[2 * g] - x0;
-        s_dbits[i] = __float_as_uint(depth[g]);
+        s_gid[i] = g;
     }
     __syncthreads();
     const int64_t b1 = d1 - a1;
     for (int64_t b = d0 - a0 + threadIdx.x; b < b1; b += K2_THREADS) {
-        // The last staged Gaussian starting at or before b: the one holding
-        // it (Gaussians with no pair share the next one's start).
-        int lo = 0, hi = n_g - 1;
+        // The last staged rank starting at or before b: the one holding it
+        // (ranks with no pair share the next one's start).
+        int lo = 0, hi = n_r - 1;
         while (lo < hi) {
             const int mid = (lo + hi + 1) >> 1;
             if (s_start[mid] <= b) lo = mid;
@@ -180,8 +190,8 @@ __global__ void __launch_bounds__(K2_THREADS) write_pairs_rect_kernel(
         const int k = (int)(b - s_start[lo]);
         const int w = s_w[lo];
         const int tx = s_x0[lo] + k % w, ty = s_y0[lo] + k / w;
-        keys[b] = ((int64_t)(ty * grid_w + tx) << 32) | (int64_t)s_dbits[lo];
-        gids[b] = g_lo + lo;
+        tiles[b] = ty * grid_w + tx;
+        gids[b] = s_gid[lo];
     }
 }
 
@@ -198,21 +208,21 @@ GS2PC_API int gs2pc_count_pairs(const void* xy, const void* r_alpha_sq, const vo
 }
 
 GS2PC_API int gs2pc_write_pairs(const void* xy, const void* r_alpha_sq, const void* rect_min,
-                                const void* rect_max, const void* valid, const void* depth,
+                                const void* rect_max, const void* order,
                                 const void* ends, int P, long long total, int circle_cull,
-                                int grid_w, void* keys, void* gids, void* stream) {
+                                int grid_w, void* tiles, void* gids, void* stream) {
     const cudaStream_t st = (cudaStream_t)stream;
     if (P > 0 && total > 0) {
         if (circle_cull) {
             write_pairs_cull_kernel<<<(P + 255) / 256, 256, 0, st>>>(
                 (const float*)xy, (const float*)r_alpha_sq, (const int*)rect_min,
-                (const int*)rect_max, (const uint8_t*)valid, (const float*)depth,
-                (const int64_t*)ends, P, grid_w, (int64_t*)keys, (int*)gids);
+                (const int*)rect_max, (const int*)order,
+                (const int64_t*)ends, P, grid_w, (int*)tiles, (int*)gids);
         } else {
             const long long blocks = ((long long)P + total + K2_ITEMS - 1) / K2_ITEMS;
             write_pairs_rect_kernel<<<(unsigned)blocks, K2_THREADS, 0, st>>>(
-                (const int*)rect_min, (const int*)rect_max, (const float*)depth,
-                (const int64_t*)ends, P, (int64_t)total, grid_w, (int64_t*)keys, (int*)gids);
+                (const int*)rect_min, (const int*)rect_max, (const int*)order,
+                (const int64_t*)ends, P, (int64_t)total, grid_w, (int*)tiles, (int*)gids);
         }
     }
     return (int)cudaGetLastError();

@@ -48,8 +48,18 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "gs2pc_count_pairs": (_I, [_P, _P, _P, _P, _P, _I, _I, _P, _P]),
     "gs2pc_write_pairs": (
-        _I, [_P, _P, _P, _P, _P, _P, _P, _I, ctypes.c_longlong, _I, _I, _P, _P, _P],
+        _I, [_P, _P, _P, _P, _P, _P, _I, ctypes.c_longlong, _I, _I, _P, _P, _P],
     ),
+    # keys, values, n, end_bit, scratch, scratch bytes, the sorted keys' and
+    # values' pointers (out), the stream.
+    "gs2pc_sort_pairs": (
+        _I, [_P, _P, ctypes.c_longlong, _I, _P, ctypes.c_ulonglong, ctypes.POINTER(_P),
+             ctypes.POINTER(_P), _P],
+    ),
+    "gs2pc_sort_scratch_bytes": (
+        _I, [ctypes.c_longlong, _I, ctypes.POINTER(ctypes.c_ulonglong)],
+    ),
+    "gs2pc_depth_keys": (_I, [_P, _P, _I, _P, _P, _P]),
     "gs2pc_blend_tiles": (
         _I,
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,

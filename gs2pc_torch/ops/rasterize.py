@@ -2,11 +2,14 @@
 path, render_tile_camera).
 
 Per camera: preprocess and the blend table (K6, one launch, as the JAX
-package fuses them) -> exact pair expansion (K2, CUDA's
-duplicateWithKeys, on the exclusive cumsum of per-Gaussian tile counts) ->
-stable sort of (tile << 32 | depth bits) int64 keys -> tile ranges by
-searchsorted -> run cap and masked-tile zeroing -> blend (K1, which also
-reduces the per-Gaussian max contribution, best pixel and surface
+package fuses them) -> the pairs in (tile, depth bits, gid) order
+(``order_pairs``: on the card a stable sort of the Gaussians by depth bits,
+the exact pair expansion written in that rank order (K2, CUDA's
+duplicateWithKeys, on the exclusive cumsum of the tile counts taken in rank
+order), then a stable sort of the pairs by tile id alone; on the CPU the
+twin's pairs and a stable sort of (tile << 32 | depth bits) int64 keys) ->
+tile ranges by searchsorted -> run cap and masked-tile zeroing -> blend (K1,
+which also reduces the per-Gaussian max contribution, best pixel and surface
 distance).  The JAX package's static pair budget, waterfill and aligned
 pair layout exist for fixed shapes on the TPU and have no counterpart here.
 
@@ -18,6 +21,7 @@ package; K1 implements each in the kernel and in its twin.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
 import torch
@@ -76,32 +80,133 @@ def pack_blend_table(prep: Preprocessed, colours: torch.Tensor, compact: bool = 
 
 
 # --------------------------------------------------------------------- #
-# K2: pair expansion
+# K2: pair expansion, and the sorts around it
 # --------------------------------------------------------------------- #
 
-def duplicate_with_keys(prep: Preprocessed, cfg: TileConfig, circle_cull: bool):
-    """Expand every valid Gaussian into one (key, gid) pair per emitted tile.
+# CUB's arrays and storage start at 256-byte boundaries (csrc/sort.cu).
+_ALIGN = 256
 
-    key = (tile_id << 32) | float_bits(depth) as int64, tile_id = ty *
-    grid_w + tx; pairs are written in gid order, rect row-major within a
-    Gaussian (the full-rect write kernel is pair-parallel and relies on
-    that order).  ``circle_cull`` drops rect tiles the AdR circle misses
-    (the count and write passes apply the same test).  CUDA kernels for
-    CUDA tensors, the twin for CPU tensors."""
+
+def _sort_scratch(lib, n: int, end_bit: int) -> int:
+    """Bytes of scratch a sort of n pairs on end_bit bits needs."""
+    from gs2pc_torch.ops.cuda_build import check
+
+    n_bytes = ctypes.c_ulonglong()
+    check(lib.gs2pc_sort_scratch_bytes(n, end_bit, ctypes.byref(n_bytes)),
+          "gs2pc_sort_scratch_bytes")
+    return n_bytes.value
+
+
+def _radix_sort(lib, keys: int, vals: int, n: int, end_bit: int, scratch: int,
+                scratch_bytes: int, stream: int) -> tuple:
+    """Stable sort of the n int32 keys at ``keys`` (read as uint32, bits [0,
+    end_bit)) carrying the int32 values at ``vals``: CUB's DeviceRadixSort
+    (csrc/sort.cu) on ``stream``, with the alternates and its storage in
+    ``scratch``.  Returns the device pointers of the sorted keys and values.
+    The caller makes the arrays' card current.  Counts one launch on
+    ``order_pairs.launches``."""
+    from gs2pc_torch.ops.cuda_build import check
+
+    out_keys, out_vals = ctypes.c_void_p(), ctypes.c_void_p()
+    rc = lib.gs2pc_sort_pairs(keys, vals, n, end_bit, scratch, scratch_bytes,
+                              ctypes.byref(out_keys), ctypes.byref(out_vals), stream)
+    order_pairs.launches += 1
+    check(rc, "gs2pc_sort_pairs")
+    return out_keys.value or 0, out_vals.value or 0
+
+
+def _at(buf: torch.Tensor, ptr: int, n: int) -> torch.Tensor:
+    """The n int32 of ``buf`` that start at device pointer ``ptr``."""
+    start = (ptr - buf.data_ptr()) // 4
+    return buf[start:start + n]
+
+
+def depth_order(depth: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The gids (int32) in the rank order K2 writes pairs in: a stable sort
+    by the depth's float bits read as uint32, each invalid Gaussian's key
+    0xFFFFFFFF (they emit no pair, and so K2's threads past the valid ones
+    end at once).  A valid Gaussian's depth is positive, so the valid ones
+    come first in depth order, ties by gid.  On the card CUB's radix sort
+    over 32 bits, the keys in one allocation with the sort's scratch, freed
+    on return; on the CPU ``torch.sort``."""
+    if depth.device.type == "cpu":
+        bits = torch.where(valid, depth.contiguous().view(torch.int32), -1)
+        return torch.sort(bits.long() & 0xFFFFFFFF, stable=True)[1].to(torch.int32)
+    from gs2pc_torch.ops.cuda_build import check, load_library, stream_ptr
+
+    lib = load_library()
+    depth, valid = depth.contiguous(), valid.contiguous()
+    P = depth.numel()
+    half = -(-4 * P // _ALIGN) * _ALIGN
+    with torch.cuda.device(depth.device):
+        scratch = _sort_scratch(lib, P, 32)
+        order = torch.empty(P, dtype=torch.int32, device=depth.device)
+        buf = torch.empty((half + scratch + 3) // 4, dtype=torch.int32, device=depth.device)
+        keys, stream = buf.data_ptr(), stream_ptr(depth)
+        check(lib.gs2pc_depth_keys(depth.data_ptr(), valid.data_ptr(), P, keys,
+                                   order.data_ptr(), stream), "gs2pc_depth_keys")
+        _, vals = _radix_sort(lib, keys, order.data_ptr(), P, 32, keys + half, scratch, stream)
+    # Four passes leave the result where it started; a copy otherwise, so
+    # that the scratch is not held while K2 and the tile sort run.
+    return order if vals == order.data_ptr() else _at(buf, vals, P).clone()
+
+
+def tile_bits(num_tiles: int) -> int:
+    """The bits a tile id needs: the tile sort's digits."""
+    return max(1, (num_tiles - 1).bit_length())
+
+
+def sort_by_tile(tiles: torch.Tensor, gids: torch.Tensor, num_tiles: int):
+    """Stable sort of the (tile id, gid) pairs by tile id (int32, in [0,
+    num_tiles)); returns (sorted tile ids, gids).  On the card CUB's radix
+    sort over ``tile_bits(num_tiles)`` bits, which overwrites both inputs;
+    on the CPU ``torch.sort``."""
+    if tiles.device.type == "cpu":
+        sorted_tiles, perm = torch.sort(tiles, stable=True)
+        return sorted_tiles, gids[perm]
+    from gs2pc_torch.ops.cuda_build import load_library, stream_ptr
+
+    lib = load_library()
+    n, bits = tiles.numel(), tile_bits(num_tiles)
+    with torch.cuda.device(tiles.device):
+        scratch_bytes = _sort_scratch(lib, n, bits)
+        scratch = torch.empty((scratch_bytes + 3) // 4, dtype=torch.int32, device=tiles.device)
+        keys, vals = _radix_sort(lib, tiles.data_ptr(), gids.data_ptr(), n, bits,
+                                 scratch.data_ptr(), scratch_bytes, stream_ptr(tiles))
+    if keys == tiles.data_ptr():
+        return tiles, gids
+    return _at(scratch, keys, n), _at(scratch, vals, n)
+
+
+def duplicate_with_keys(prep: Preprocessed, cfg: TileConfig, circle_cull: bool,
+                        order: torch.Tensor):
+    """K2: expand every valid Gaussian into one (tile id, gid) pair per
+    emitted tile, both int32, tile_id = ty * grid_w + tx; the Gaussians in
+    the rank order ``order`` (int32 gids, a permutation of range(P), as
+    ``depth_order`` gives), rect row-major within a Gaussian (the full-rect
+    write kernel is pair-parallel and relies on that order).
+    ``circle_cull`` drops rect tiles the AdR circle misses (the count and
+    write passes apply the same test).  CUDA kernels for CUDA tensors; for
+    CPU tensors the twin's pairs moved to rank order."""
     dev = prep.xy.device
     if dev.type == "cpu":
-        return duplicate_with_keys_torch(prep, cfg, circle_cull)
+        keys, gids = duplicate_with_keys_torch(prep, cfg, circle_cull)
+        rank = torch.empty_like(order)
+        rank[order.long()] = torch.arange(order.numel(), dtype=order.dtype)
+        perm = torch.sort(rank[gids.long()], stable=True)[1]
+        return (keys >> 32).to(torch.int32)[perm], gids[perm]
     if dev.type != "cuda":
         raise ValueError(f"duplicate_with_keys: unsupported device {dev}")
     from gs2pc_torch.ops.cuda_build import check, launch, load_library, stream_ptr
 
     lib = load_library()
-    xy, r2, rmin, rmax, valid, depth = (
+    xy, r2, rmin, rmax, valid, order = (
         t.contiguous() for t in (prep.xy, prep.r_alpha_sq, prep.rect_min, prep.rect_max,
-                                 prep.valid, prep.depth)
+                                 prep.valid, order)
     )
-    if rmin.dtype != torch.int32 or valid.dtype != torch.bool or xy.dtype != torch.float32:
-        raise ValueError("duplicate_with_keys: unexpected preprocess dtypes")
+    if (rmin.dtype != torch.int32 or valid.dtype != torch.bool or xy.dtype != torch.float32
+            or order.dtype != torch.int32):
+        raise ValueError("duplicate_with_keys: unexpected preprocess or order dtypes")
     P = xy.shape[0]
     stream = stream_ptr(xy)
     counts = torch.empty(P, dtype=torch.int32, device=dev)
@@ -112,27 +217,29 @@ def duplicate_with_keys(prep: Preprocessed, cfg: TileConfig, circle_cull: bool):
     )
     duplicate_with_keys.launches += 1
     check(rc, "gs2pc_count_pairs")
-    ends = torch.cumsum(counts, 0, dtype=torch.int64)
+    ends = torch.cumsum(counts.index_select(0, order), 0, dtype=torch.int64)
     total = int(ends[-1]) if P else 0
-    keys = torch.empty(total, dtype=torch.int64, device=dev)
+    tiles = torch.empty(total, dtype=torch.int32, device=dev)
     gids = torch.empty(total, dtype=torch.int32, device=dev)
     rc = launch(
         lib.gs2pc_write_pairs, xy,
-        xy.data_ptr(), r2.data_ptr(), rmin.data_ptr(), rmax.data_ptr(), valid.data_ptr(),
-        depth.data_ptr(), ends.data_ptr(), P, total, int(circle_cull), cfg.grid_w,
-        keys.data_ptr() if total else None, gids.data_ptr() if total else None, stream,
+        xy.data_ptr(), r2.data_ptr(), rmin.data_ptr(), rmax.data_ptr(), order.data_ptr(),
+        ends.data_ptr(), P, total, int(circle_cull), cfg.grid_w,
+        tiles.data_ptr() if total else None, gids.data_ptr() if total else None, stream,
     )
     duplicate_with_keys.launches += 1
     check(rc, "gs2pc_write_pairs")
-    return keys, gids
+    return tiles, gids
 
 
 duplicate_with_keys.launches = 0
 
 
 def duplicate_with_keys_torch(prep: Preprocessed, cfg: TileConfig, circle_cull: bool):
-    """The plain PyTorch twin of K2: repeat_interleave over the full rects,
-    then the circle test as a boolean filter (order kept)."""
+    """The plain PyTorch twin of K2 as the JAX package orders it: (tile <<
+    32 | depth bits) int64 keys and gids, in gid order, rect row-major within
+    a Gaussian; repeat_interleave over the full rects, then the circle test
+    as a boolean filter (order kept)."""
     dev = prep.xy.device
     P = prep.xy.shape[0]
     rmin, rmax = prep.rect_min.long(), prep.rect_max.long()
@@ -163,12 +270,44 @@ def sort_pairs(keys: torch.Tensor, gids: torch.Tensor):
     return sorted_keys, gids[order]
 
 
-def tile_ranges(sorted_keys: torch.Tensor, num_tiles: int):
-    """(start, run length) of every tile's contiguous pair run."""
-    tile_of = sorted_keys >> 32
-    tids = torch.arange(num_tiles, device=sorted_keys.device, dtype=torch.int64)
-    starts = torch.searchsorted(tile_of, tids, right=False)
-    ends = torch.searchsorted(tile_of, tids, right=True)
+def _check_pair_count(n: int) -> None:
+    if n >= 2**31:
+        # K1 indexes the pair run, and the tile sort its items, with 32-bit ints.
+        raise ValueError(f"{n} pairs in one camera exceed K1's 2^31 limit")
+
+
+def order_pairs(prep: Preprocessed, cfg: TileConfig, circle_cull: bool):
+    """Every pair of the camera in (tile, depth bits, gid) order, K1's input
+    order: (sorted tile ids, sorted gids), int32.  On the card the depth
+    sort (``depth_order``), K2 in that rank order, then the stable tile sort
+    (``sort_by_tile``): stability makes it the permutation the int64 key
+    sort gives.  On CPU tensors the twin's int64 keys through ``sort_pairs``.
+    ``order_pairs.launches`` counts the sorts' launches, two a camera."""
+    if prep.xy.device.type == "cpu":
+        with log.trace_range("k2_pairs"):
+            keys, gids = duplicate_with_keys_torch(prep, cfg, circle_cull)
+        _check_pair_count(gids.numel())
+        with log.trace_range("key_sort"):
+            sorted_keys, sorted_gid = sort_pairs(keys, gids)
+        return (sorted_keys >> 32).to(torch.int32), sorted_gid
+    with log.trace_range("depth_sort"):
+        order = depth_order(prep.depth, prep.valid)
+    with log.trace_range("k2_pairs"):
+        tiles, gids = duplicate_with_keys(prep, cfg, circle_cull, order)
+    _check_pair_count(gids.numel())
+    with log.trace_range("key_sort"):
+        return sort_by_tile(tiles, gids, cfg.num_tiles)
+
+
+order_pairs.launches = 0
+
+
+def tile_ranges(sorted_tiles: torch.Tensor, num_tiles: int):
+    """(start, run length) of every tile's contiguous pair run, from the
+    pairs' sorted tile ids."""
+    tids = torch.arange(num_tiles, device=sorted_tiles.device, dtype=sorted_tiles.dtype)
+    starts = torch.searchsorted(sorted_tiles, tids, right=False)
+    ends = torch.searchsorted(sorted_tiles, tids, right=True)
     return starts, ends - starts
 
 
@@ -190,14 +329,8 @@ def blend_inputs(prep: Preprocessed, colours: torch.Tensor, camera, cfg: TileCon
     through to K1."""
     if table is None:
         table = pack_blend_table(prep, colours, compact=cfg.compact)
-    with log.trace_range("k2_pairs"):
-        keys, gids = duplicate_with_keys(prep, cfg, circle_cull=not calc_surface_distance)
-    if gids.numel() >= 2**31:
-        # K1 indexes the pair run with 32-bit ints.
-        raise ValueError(f"{gids.numel()} pairs in one camera exceed K1's 2^31 limit")
-    with log.trace_range("key_sort"):
-        sorted_keys, sorted_gid = sort_pairs(keys, gids)
-    starts, runs = tile_ranges(sorted_keys, cfg.num_tiles)
+    sorted_tile, sorted_gid = order_pairs(prep, cfg, circle_cull=not calc_surface_distance)
+    starts, runs = tile_ranges(sorted_tile, cfg.num_tiles)
     if camera.mask is not None:
         live = _tile_max((camera.mask != 0).to(torch.float32), cfg) > 0.0
         runs = torch.where(live, runs, 0)

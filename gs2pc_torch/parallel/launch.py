@@ -76,6 +76,7 @@ def kernel_launches() -> dict:
 
     return {"blend_tiles": blend_kernel.blend_tiles.launches,
             "duplicate_with_keys": rasterize.duplicate_with_keys.launches,
+            "order_pairs": rasterize.order_pairs.launches,
             "sample_points": sampler.sample_points.launches,
             "project_and_pack": projection.project_and_pack.launches,
             "preprocess": projection.preprocess.launches}

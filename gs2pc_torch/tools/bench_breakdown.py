@@ -3,8 +3,9 @@ of tools/bench_breakdown.py), on the capture scene, timed with CUDA events
 (a warm-up call, then the mean over ``--reps`` calls):
 
   preprocess                      projection, conic and tile rects
-  preprocess + K2                 + the exact pair expansion (no sort)
-  + sort + tile ranges            + the stable key sort and the run bounds
+  preprocess + depth sort + K2    + the Gaussians' depth sort and the exact
+                                  pair expansion in its order (no tile sort)
+  + order_pairs + tile ranges     + the stable tile sort and the run bounds
   full sweep, K1 / twin,          every camera through render_sweep, with
     surface on / off              K1 or its PyTorch twin
   full sweep, K1, surface, masks  with the capture's vignette masks
@@ -87,15 +88,16 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         return preprocess(scene.means, scene.cov_factors, scene.opacities, scene.alive, cam)
 
     def expand():
-        return R.duplicate_with_keys(prep(), cfg, circle_cull=True)
+        p = prep()
+        return R.duplicate_with_keys(p, cfg, True, R.depth_order(p.depth, p.valid))
 
     def binning():
-        keys, gids = R.sort_pairs(*expand())
-        return R.tile_ranges(keys, cfg.num_tiles), gids
+        tiles, gids = R.order_pairs(prep(), cfg, circle_cull=True)
+        return R.tile_ranges(tiles, cfg.num_tiles), gids
 
     show("preprocess", cuda_ms(prep, args.reps))
-    show("preprocess + K2 (no sort)", cuda_ms(expand, args.reps))
-    show("preprocess + K2 + sort + tile ranges", cuda_ms(binning, args.reps))
+    show("preprocess + depth sort + K2 (no tile sort)", cuda_ms(expand, args.reps))
+    show("preprocess + order_pairs + tile ranges", cuda_ms(binning, args.reps))
 
     n = cameras.num_cameras
     for name, blend in (("K1", blend_kernel.blend_tiles), ("twin", blend_kernel.blend_tiles_torch)):

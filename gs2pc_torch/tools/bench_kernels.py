@@ -14,7 +14,8 @@ after a warm-up (ten times as many for the probes): through its wrapper
 (allocations and the PyTorch work around the launch included), and the
 launch alone (the C entry point, replayed on the arguments the wrapper
 gives it; every entry point is idempotent on its outputs).  K2's scan +
-sync is the wrapper's time less its count and write launches.  Beside the
+sync is the wrapper's time less its count and write launches; ``order_ms``
+times the whole ordering of the pairs through the wrapper.  Beside the
 probes: their kernels' own device time (torch.profiler), the floor (an
 empty kernel's entry point replayed the same way, before and after them),
 and the PyTorch calls that compute K3's roll and scan (torch.roll,
@@ -182,16 +183,33 @@ def time_k1(modes, reps: int) -> dict:
 
 
 def time_k2(prep, cfg, reps: int) -> dict:
+    """K2's launches and wrapper, and ``order_ms``: the pairs from the
+    preprocess to K1's order (the depth sort, K2 in rank order and the tile
+    sort; in a checkout without the depth sort, K2 and the int64 key sort
+    with its gid gather)."""
     from gs2pc_torch.ops import rasterize as R
 
-    def call():
-        return R.duplicate_with_keys(prep, cfg, circle_cull=False)
+    if hasattr(R, "order_pairs"):
+        order = R.depth_order(prep.depth, prep.valid)
+
+        def call():
+            return R.duplicate_with_keys(prep, cfg, False, order)
+
+        def ordered():
+            return R.order_pairs(prep, cfg, False)
+    else:
+        def call():
+            return R.duplicate_with_keys(prep, cfg, circle_cull=False)
+
+        def ordered():
+            return R.sort_pairs(*call())
 
     launch = launch_ms(call, K2_ENTRIES, reps)
     wrapper = cuda_ms(call, reps)
     count, write = (launch[n] for n in K2_ENTRIES)
     return {"count_ms": count, "write_ms": write, "scan_sync_ms": wrapper - count - write,
-            "wrapper_ms": wrapper, "pairs": int(call()[0].numel())}
+            "wrapper_ms": wrapper, "order_ms": cuda_ms(ordered, reps),
+            "pairs": int(call()[0].numel())}
 
 
 def time_k5(n_gaussians: int, device, reps: int) -> dict:

@@ -6,6 +6,8 @@ that has none:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -79,16 +81,19 @@ def test_pairs_kernel_matches_twin(cuda, surface):
     cfg = R.TileConfig(width_pad=batch.width_pad, height_pad=batch.height_pad)
     prep = preprocess(g.xyz, g.covariance_factors(), g.opacities, g.keep_mask, cam,
                       adaptive_radius=not surface)
+    order = R.depth_order(prep.depth, prep.valid)
+    assert torch.equal(order.cpu(), R.depth_order(prep.depth.cpu(), prep.valid.cpu()))
     before = R.duplicate_with_keys.launches
-    uk, ug = R.duplicate_with_keys(prep, cfg, not surface)
+    ut, ug = R.duplicate_with_keys(prep, cfg, not surface, order)
     assert R.duplicate_with_keys.launches == before + 2
-    tuk, tug = R.duplicate_with_keys_torch(prep, cfg, not surface)
-    # The same pair at the same index before the sort, and so after it.
-    assert torch.equal(uk, tuk) and torch.equal(ug, tug)
-    kk, kg = R.sort_pairs(uk, ug)
-    tk, tg = R.sort_pairs(tuk, tug)
-    assert kk.numel() > 0
-    assert torch.equal(kk, tk) and torch.equal(kg, tg)
+    # The same pair at the same index before the tile sort: the twin's pairs
+    # moved to the same rank order (duplicate_with_keys on CPU tensors).
+    tt, tg = R.duplicate_with_keys(_on_cpu(prep), cfg, not surface, order.cpu())
+    assert torch.equal(ut.cpu(), tt) and torch.equal(ug.cpu(), tg)
+    st, sg = R.sort_by_tile(ut, ug, cfg.num_tiles)
+    tk, tg = R.sort_pairs(*R.duplicate_with_keys_torch(prep, cfg, not surface))
+    assert sg.numel() > 0
+    assert torch.equal(st.long(), tk >> 32) and torch.equal(sg, tg)
 
 
 def test_pairs_kernel_whole_screen_gaussian(cuda):
@@ -117,10 +122,63 @@ def test_pairs_kernel_whole_screen_gaussian(cuda):
         radius_q=t(np.ones(n), torch.float32), rect_min=t(rmin, torch.int32),
         rect_max=t(rmax, torch.int32), tiles_touched=t(area, torch.int32), valid=t(valid, torch.bool))
     cfg = R.TileConfig(width_pad=16 * gw, height_pad=16 * gh)
-    uk, ug = R.duplicate_with_keys(prep, cfg, False)
-    tk, tg = R.duplicate_with_keys_torch(prep, cfg, False)
-    assert uk.numel() == int(area.sum()) >= gw * gh
-    assert torch.equal(uk, tk) and torch.equal(ug, tg)
+    order = R.depth_order(prep.depth, prep.valid)
+    ut, ug = R.duplicate_with_keys(prep, cfg, False, order)
+    tt, tg = R.duplicate_with_keys(_on_cpu(prep), cfg, False, order.cpu())
+    assert ut.numel() == int(area.sum()) >= gw * gh
+    assert torch.equal(ut.cpu(), tt) and torch.equal(ug.cpu(), tg)
+    _hold_order_pairs(prep, cfg, False)
+
+
+def _on_cpu(prep):
+    return type(prep)(*(t.cpu() for t in prep))
+
+
+def _hold_order_pairs(prep, cfg, circle_cull: bool) -> int:
+    """order_pairs on the card against the twin chain (the int64 key sort of
+    the twin's gid-order pairs, then the gid gather): sorted gids, tile
+    starts and runs bit-equal, two sorts launched.  Returns the pair count."""
+    before = R.order_pairs.launches
+    tiles, gids = R.order_pairs(prep, cfg, circle_cull)
+    assert R.order_pairs.launches == before + 2
+    keys, want_gids = R.sort_pairs(*R.duplicate_with_keys_torch(prep, cfg, circle_cull))
+    torch.cuda.synchronize()
+    assert tiles.dtype == gids.dtype == torch.int32
+    assert torch.equal(gids, want_gids)
+    got = R.tile_ranges(tiles, cfg.num_tiles)
+    want = R.tile_ranges((keys >> 32).to(torch.int32), cfg.num_tiles)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    return gids.numel()
+
+
+@functools.lru_cache(maxsize=1)
+def _e2e_arrays():
+    """chip_smoke's e2e scene: 3M Gaussians of the capture kind."""
+    return capture.make_scene_arrays(3_000_000)
+
+
+@pytest.mark.parametrize("surface", [True, False], ids=["full_rect", "circle_cull"])
+@pytest.mark.parametrize("where", ["camera_0", "slab_1_of_4"])
+def test_order_pairs_matches_int64_key_sort(cuda, where, surface):
+    """Camera 0 of the e2e scene (3M Gaussians, 1280x720, 3,600 tiles: two
+    radix digits), whole or as depth slab 1 of 4 (gauss_shard's compaction):
+    the depth sort, K2 in rank order and the tile sort give the int64 key
+    sort's order exactly."""
+    from gs2pc_torch.parallel import gauss_shard
+    from gs2pc_torch.sweep import render_arrays
+
+    a = _e2e_arrays()
+    g = Gaussians.from_numpy(a.xyz, a.log_scales, a.rots, a.colours, a.opacities, device=cuda)
+    transforms, intr = capture.make_poses(1, 1280, 720)
+    batch = build_camera_batch(transforms, intr, device=cuda)
+    cam = batch.at(0)
+    cfg = R.TileConfig(width_pad=batch.width_pad, height_pad=batch.height_pad)
+    scene = render_arrays(g)
+    if where != "camera_0":
+        scene = gauss_shard._compact(scene, cam, 1, 4, None).scene
+    prep = preprocess(scene.means, scene.cov_factors, scene.opacities, scene.alive, cam,
+                      adaptive_radius=not surface)
+    assert _hold_order_pairs(prep, cfg, not surface) > 100_000
 
 
 @pytest.mark.parametrize("compact,surface_compact", [(True, True), (False, False)])
@@ -287,8 +345,9 @@ def test_camera_without_pairs_on_card(cuda):
     alive = torch.zeros_like(g.keep_mask)
     prep = preprocess(g.xyz, g.covariance_factors(), g.opacities, alive, cam,
                       adaptive_radius=False)
-    keys, gids = R.duplicate_with_keys(prep, cfg, False)
-    assert keys.numel() == 0 and gids.numel() == 0
+    tiles, gids = R.duplicate_with_keys(prep, cfg, False, R.depth_order(prep.depth, prep.valid))
+    assert tiles.numel() == 0 and gids.numel() == 0
+    assert _hold_order_pairs(prep, cfg, False) == 0
     out = R.render_tile_camera(g.xyz, g.covariance_factors(), g.opacities, g.colours, alive,
                                cam, cfg)
     valid = cam.mask.reshape(batch.height_pad, batch.width_pad) != 0
@@ -359,9 +418,12 @@ def test_conversion_on_card(cuda, tmp_path):
     )
     before = B.blend_tiles.launches
     before_k5 = S.sample_points.launches
+    before_sorts = R.order_pairs.launches
     result = pipeline.convert_3dgs_to_pc(ply, tj, masks, settings, device=cuda)
     assert B.blend_tiles.launches == before + 3
     assert S.sample_points.launches == before_k5 + 1
+    # Every camera took the depth-first order: its depth sort and tile sort.
+    assert R.order_pairs.launches == before_sorts + 2 * 3
     cloud = result.cloud
     assert cloud.total == int(cloud.counts.sum()) > 0
     assert np.isfinite(cloud.points).all()
@@ -663,13 +725,14 @@ def test_render_preview_on_card_equals_render_camera(cuda, tmp_path):
     ply, tj, _ = capture.write_capture(str(tmp_path), capture.make_scene_arrays(5000, seed=4),
                                        transforms, intr, with_masks=False)
     out = tmp_path / "previews"
-    before = (B.blend_tiles.launches, R.duplicate_with_keys.launches)
+    before = (B.blend_tiles.launches, R.duplicate_with_keys.launches, R.order_pairs.launches)
     written = render_preview.main(["--input_path", ply, "--transform_path", tj, "--out_dir",
                                    str(out), "--colour_quality", "original", "--depth",
                                    "--device", "cuda:0"])
     assert len(written) == 4
-    launched = (B.blend_tiles.launches - before[0], R.duplicate_with_keys.launches - before[1])
-    assert launched == (2, 4)
+    launched = (B.blend_tiles.launches - before[0], R.duplicate_with_keys.launches - before[1],
+                R.order_pairs.launches - before[2])
+    assert launched == (2, 4, 4)
     scene = render_preview.scene_arrays(render_preview.load_gaussians(ply, device=cuda))
     cams = build_camera_batch(*render_preview.load_transform_data(tj), device=cuda)
     cfg = R.TileConfig(width_pad=cams.width_pad, height_pad=cams.height_pad)
