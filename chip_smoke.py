@@ -2204,6 +2204,7 @@ def phase_spmd(device, splits, e2e, work):
         root = (splits["scene"], splits["cams"], None)
         log.reset_phases()
         reset_launches()
+        starts = launch.RANK_STARTS
         t0 = time.perf_counter()
         res = launch.run(launch.in_turn, devices,
                          [(dryrun.sweep_rank, (split, splits["cfg"])) for split, _, _ in jobs]
@@ -2211,6 +2212,11 @@ def phase_spmd(device, splits, e2e, work):
         wall = time.perf_counter() - t0
         k5_by_rank = [r[2] for r in launches_by_rank()]
         bringup = spmd_bringup()
+        # Each group's devices differ from the pool before it: a new pool.
+        if (launch.RANK_STARTS - starts != len(devices) - 1
+                or "spmd_spawn_import" not in bringup):
+            fail(f"spmd, {len(devices)} ranks: {launch.RANK_STARTS - starts} ranks started, "
+                 f"bring-up {bringup}; expected a new pool of {len(devices) - 1}")
         backend = "nccl" if len(set(devices)) > 1 else "gloo"
         spmd_sampler(res.pop(), devices, conversion[1], k5_by_rank, work, backend)
         for (split, label, want_k1), (acc, sweep_wall, launches) in zip(jobs, res):
@@ -2235,6 +2241,7 @@ def phase_spmd(device, splits, e2e, work):
             launch.run(dryrun.fail_on_rank, cards, n_cards - 1, timeout=120)
         except dryrun.PlantedFailure as exc:
             wall = time.perf_counter() - t0
+            launch.shutdown()
             left = multiprocessing.active_children()
             if left:
                 fail(f"spmd: ranks left running after a failed rank: {left}")
@@ -2280,12 +2287,15 @@ def spmd_sampler(res, devices, conv_args, k5_by_rank, work, backend) -> None:
 
 def spmd_cli(device, e2e, work, n_cards: int) -> dict:
     """The e2e CLI on every card: at --num_devices 0 (the camera split) and
-    at --shard_axis gauss, one process per card over NCCL; each PLY
-    byte-equal to the walk's conversion written by the same writer, K1 and
-    K2 launched as often over all the ranks as the split asks (16 and 32 on
-    the cameras, 3 x cards times that on the slabs); walls and bring-up."""
+    at --shard_axis gauss, one process per card over NCCL, both over the
+    pool of ranks phase_spmd's last group left (no rank started, no
+    bring-up phase filed); each PLY byte-equal to the walk's conversion
+    written by the same writer, K1 and K2 launched as often over all the
+    ranks as the split asks in each run alone (16 and 32 on the cameras,
+    3 x cards times that on the slabs); walls."""
     from gs2pc_torch import cli, pipeline
     from gs2pc_torch.io.ply import save_point_cloud_ply
+    from gs2pc_torch.parallel import launch
     from gs2pc_torch.utils import log
     from gs2pc_torch.utils.config import parse_args, settings_from_args
 
@@ -2299,10 +2309,15 @@ def spmd_cli(device, e2e, work, n_cards: int) -> dict:
             "--surface_distance_std", "1e6"] + extra
         log.reset_phases()
         reset_launches()
+        starts = launch.RANK_STARTS
         t0 = time.perf_counter()
         res = cli.main(argv)
         wall = time.perf_counter() - t0
         phases = {k: round(v, 4) for k, v in log.PHASE_SECONDS.items()}
+        bringup = [k for k in phases if k.startswith("rank") and "/spmd_" in k]
+        if launch.RANK_STARTS != starts or bringup or "spmd_dispatch" not in phases:
+            fail(f"spmd CLI {label}: {launch.RANK_STARTS - starts} ranks started, bring-up "
+                 f"phases {bringup}; expected the pool's ranks, kept")
         launches, by_rank = launched(), launches_by_rank()
         want = {"K1": want_k1, "K2": 2 * want_k1, "sorts": 2 * want_k1, "K5": n_cards,
                 "K6": want_k1,

@@ -74,6 +74,7 @@ class Axis:
         # Where a collective's buffers live: the host for gloo (which stages
         # a CUDA tensor there and back), the rank's card for NCCL.
         self._wire = torch.device("cpu") if self.backend == "gloo" else self.device
+        self._grid: Optional[tuple] = None
 
     def _host(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` where the backend takes it (the host for gloo)."""
@@ -156,7 +157,12 @@ class Axis:
         ranks form the slab axes; the row leaders (the ranks whose slab
         rank is 0) form the camera axis.  Returns (this rank's slab axis,
         the camera axis or None off the leaders).  Every rank creates every
-        subgroup, in the same order: ``dist.new_group`` is collective."""
+        subgroup, in the same order, on its first call: ``dist.new_group``
+        is collective, so the subgroups are made once for the life of this
+        axis (a pool's, gs2pc_torch.parallel.launch) and later calls return
+        them."""
+        if self._grid is not None:
+            return self._grid
         rows = next(c for c in range(math.isqrt(self.size), 0, -1) if self.size % c == 0)
         g = self.size // rows
         slab = cams = None
@@ -169,4 +175,5 @@ class Axis:
         group = dist.new_group(leaders)
         if self.rank % g == 0:
             cams = Axis(self.rank // g, rows, self.device, group, leaders)
-        return slab, cams
+        self._grid = (slab, cams)
+        return self._grid

@@ -7,9 +7,10 @@ gs2pc.pipeline.convert_3dgs_to_pc).
 
 Culled Gaussians stay in place with keep_mask False and get a zero point
 quota, as in the JAX package, so every cull predicate sees the initial set.
-A sweep over several devices is an SPMD program (gs2pc_torch.parallel.
-launch): this process is rank 0, parses the scene once and broadcasts it,
-and runs the cull chain and the writer alone.  The sampler's point axis is
+A sweep over several devices is an SPMD program over the process's pool
+of ranks (gs2pc_torch.parallel.launch, started by the first such
+conversion and kept for the next): this process is rank 0, parses the
+scene once and broadcasts it, and runs the cull chain and the writer alone.  The sampler's point axis is
 split over the same ranks, as the JAX package shards it
 (gs2pc/pipeline.py:540-579): rank 0 broadcasts the sampler's inputs, rank r
 samples block r of the slots with K5, and rank 0 gathers the blocks.  The
@@ -536,8 +537,10 @@ def convert_3dgs_to_pc(
     A sweep over several devices runs as an SPMD program, one process per
     device (gs2pc_torch.parallel.launch; this process is rank 0 on
     ``device``, convert_rank): the ranks share the sweep and the samplings,
-    rank 0 alone runs the rest; a failed rank fails the conversion.  Each
-    such conversion starts its ranks anew (PERF.md gives what that costs).
+    rank 0 alone runs the rest; a failed rank fails the conversion.  The
+    ranks are the process's pool (launch.run): the first such conversion
+    starts them, and later ones on the same devices hand their job to the
+    same ranks.
     A conversion with no sweep (--load_sweep, --no_render_colours) or on
     one device samples on ``device``, with the same values."""
     device, settings, devices = _conversion_devices(settings, device, num_devices)

@@ -20,6 +20,7 @@ from gs2pc_torch.camera import CameraBatch
 from gs2pc_torch.ops import blend as B
 from gs2pc_torch.ops import rasterize as R
 from gs2pc_torch.ops.dense_render import render_dense
+from gs2pc_torch.parallel import launch
 from gs2pc_torch.sweep import RenderArrays, init_accumulators, render_sweep, update_accumulators
 from gs2pc_torch.utils.config import GaussPointCloudSettings
 from tests.conftest import make_synthetic_scene
@@ -27,6 +28,14 @@ from tests.fixture_scene import write_capture
 from tests.test_render import _scene_arrays, look_at_camera
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _no_pool_outlives_the_file():
+    """launch.run keeps its ranks for the next run: close them with the file."""
+    yield
+    launch.shutdown()
+
 
 # Oracle vs oracle: the same operations, except that the port sums the
 # weighted colour / depth over a chunk with one matrix product and JAX

@@ -9,12 +9,20 @@ import torch
 from gs2pc_torch import pipeline, sweep
 from gs2pc_torch.io.ply import save_point_cloud_ply
 from gs2pc_torch.ops import rasterize as R
-from gs2pc_torch.parallel import dryrun, gauss_shard
+from gs2pc_torch.parallel import dryrun, gauss_shard, launch
 from gs2pc_torch.sweep import render_arrays, render_sweep, render_sweep_sharded
 from gs2pc_torch.utils.config import GaussPointCloudSettings
 from tests.fixture_scene import write_capture
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _no_pool_outlives_the_file():
+    """launch.run keeps its ranks for the next run: close them with the file."""
+    yield
+    launch.shutdown()
+
 
 CPU = torch.device("cpu")
 SWEEPS = {"cams": render_sweep_sharded, "gauss": gauss_shard.render_sweep_gauss_sharded,

@@ -18,13 +18,21 @@ from gs2pc.parallel.sweep import render_sweep_sharded as jax_render_sweep_sharde
 from gs2pc_torch import pipeline
 from gs2pc_torch.camera import CameraBatch
 from gs2pc_torch.ops import rasterize as R
-from gs2pc_torch.parallel import gauss_shard
+from gs2pc_torch.parallel import gauss_shard, launch
 from gs2pc_torch.sweep import RenderArrays, render_sweep, render_sweep_sharded
 from gs2pc_torch.utils.config import GaussPointCloudSettings as Settings
 from tests.conftest import make_synthetic_scene
 from tests.test_render import look_at_camera
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _no_pool_outlives_the_file():
+    """launch.run keeps its ranks for the next run: close them with the file."""
+    yield
+    launch.shutdown()
+
 
 # tests/test_sharding.py's bounds for a sharded sweep against one device:
 # f32 summation order, and argmax-pixel ties for the colour.

@@ -29,6 +29,14 @@ from tests.test_torch_shard import _assert_close, _cfgs, _gauss_setup, _scene
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _no_pool_outlives_the_file():
+    """launch.run keeps its ranks for the next run: close them with the file."""
+    yield
+    launch.shutdown()
+
+
 CPU = torch.device("cpu")
 SPLITS = ("cams", "gauss", "both")
 SCENES = ("plain", "masked", "saturating")
