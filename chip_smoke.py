@@ -67,11 +67,18 @@ Phases (each prints one line or more; any failure exits non-zero):
  13. SH        the e2e scene written as a degree-3 SH export (59 floats a
                Gaussian) -> the CLI with --sh_colour_eval --save_sweep over
                the 16 cameras, 10M points; colours other than the DC ones;
-               K1 bit-equal to its twin on a per-camera SH table (20k
-               Gaussians at 256x192)
+               the scene its load decoded on the card bit-equal to the host
+               parse's; K1 bit-equal to its twin on a per-camera SH table
+               (20k Gaussians at 256x192)
  14. resume    the saved sweep loaded (equal to the saved accumulators bit
                for bit) and the conversion run again from it without
-               transforms: the same PLY, byte for byte
+               transforms: the same PLY, byte for byte; then the record
+               decode (csrc/plydecode.cu) over every record of the SH export
+               and a few edge rows, blocks of CARD_BLOCK_ROWS, with and
+               without the SH plane, compact and full: bit-equal to its twin
+               and to the host parse's fill of the same bytes, one launch a
+               block; timed on one block beside the twin, the host fill and
+               the bound
  15. mesh      BASELINE config 5: --clean_pointcloud --generate_mesh at the
                defaults (depth 10 -> grid 384, 10 smoothing rounds), 16
                cameras, 10M points: the surface quota, the native mesher,
@@ -255,6 +262,18 @@ TOL_K5 = 0.0
 # the float cast).
 K6_OPS = 291
 K6_COMPACT_OPS = 20
+
+# The record decode's bound (chip_smoke.phase_ply_decode), a row of the main
+# path's call (compact colours, no SH plane): the bytes it writes (xyz,
+# colours, log_scales: 12 B each; rots 16 B) beside the record it reads; its
+# float operations, counted as K6_OPS (libm as K5_LIBM_OPS): the colours 3 x
+# (multiply, add, two clip compares) and their quantise 3 x (multiply,
+# round, two casts, multiply), the norm's 4 squares, 3 adds and square root
+# (6), its clamp 2, the 4 divisions (8 each), the sign test and 4 flips;
+# the NaN tests that repeat SSE's rules are not counted, so the bound stays
+# a least time.
+PLY_DECODE_WRITE_BYTES = 52
+PLY_DECODE_OPS = 79
 
 # K3 / K4 vs their twins: the sums run in another order in K3 (warp
 # shuffles) than in its twin; K4 and its twin make the same operations, so
@@ -601,11 +620,13 @@ def check_cloud(result, out: str, label: str) -> int:
 
 def reset_launches() -> None:
     from gs2pc_torch.ops import blend_kernel as B
+    from gs2pc_torch.ops import plydecode
     from gs2pc_torch.ops import projection as PJ
     from gs2pc_torch.ops import rasterize as R
     from gs2pc_torch.ops import sampler as S
     from gs2pc_torch.parallel import launch
 
+    plydecode.ply_decode.launches = 0
     B.blend_tiles.launches = 0
     R.duplicate_with_keys.launches = 0
     R.order_pairs.launches = 0
@@ -617,7 +638,8 @@ def reset_launches() -> None:
 
 
 def read_launches() -> dict:
-    """K1's, K2's, the key sorts', K5's and K6's launches since reset_launches(), this
+    """K1's, K2's, the key sorts', K5's, K6's and the record decode's launches since
+    reset_launches(), this
     process's and those of the ranks it spawned (one process per card of a
     multi-card conversion) together (K6's: "project_and_pack" with its
     table, "preprocess" without); and this process's calls of K6's twin
@@ -651,14 +673,18 @@ def cli_ranks(sweeps: bool = True) -> int:
     return torch.cuda.device_count() if sweeps else 1
 
 
-def conversion_launches(n_cams: int, samplings: int, sweeps: bool = True) -> dict:
-    """K1, K2, key sort, K5 and K6 launches of a CLI conversion over all its
-    ranks: one K1, two K2, two sorts and one K6 (with its table) a camera,
-    one K5 a sampling on every rank; no K6 without a table and no call of
-    K6's twin."""
+def conversion_launches(n_cams: int, samplings: int, sweeps: bool = True,
+                        decoded: int = 0) -> dict:
+    """K1, K2, key sort, K5, K6 and record decode launches of a CLI
+    conversion over all its ranks: one K1, two K2, two sorts and one K6
+    (with its table) a camera, one K5 a sampling on every rank, one decode
+    a block of the ``decoded`` rows of an export the card decodes (rank 0's
+    load); no K6 without a table and no call of K6's twin."""
+    from gs2pc_torch.io.gaussians_io import CARD_BLOCK_ROWS
+
     return {"blend_tiles": n_cams, "duplicate_with_keys": 2 * n_cams, "order_pairs": 2 * n_cams,
             "sample_points": samplings * cli_ranks(sweeps), "project_and_pack": n_cams,
-            "preprocess": 0, "preprocess_torch": 0}
+            "preprocess": 0, "ply_decode": -(-decoded // CARD_BLOCK_ROWS), "preprocess_torch": 0}
 
 
 def e2e_argv(ply, tj, mask_dir, out, n_points=None):
@@ -1669,6 +1695,144 @@ def write_sh_ply(path: str, arrays, f_dc, f_rest) -> None:
         fh.write(rows.tobytes())
 
 
+def plane_bits_differ(got, want) -> int:
+    """Elements of the float32 tensor ``got`` whose bits differ from those of
+    ``want`` (a tensor or a numpy array), compared on ``got``'s device."""
+    import torch
+
+    want = torch.as_tensor(want).to(got.device)
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return max(got.numel(), want.numel())
+    return int((got.view(torch.int32) != want.view(torch.int32)).sum())
+
+
+def plant_decode_edges(recs) -> int:
+    """Overwrite a few rows of the structured records ``recs`` (an SH
+    export's) with the record decode's edge cases: zero, -0.0-w and
+    negative-w quaternions, an infinite and a NaN one, NaN with payloads and
+    +-inf in f_dc and the scales, colours past both clip ends; returns the
+    rows planted."""
+    import numpy as np
+
+    nan = np.array([0x7FC01234, 0xFFC54321, 0x7F800001], np.uint32).view(np.float32)
+    rows = [
+        {"rot_0": 0, "rot_1": 0, "rot_2": 0, "rot_3": 0},
+        {"rot_0": -0.0, "rot_1": 0.5, "rot_2": -0.5, "rot_3": 0.1},
+        {"rot_0": -0.3, "rot_1": 0.2, "rot_2": 0.1, "rot_3": 0.9},
+        {"rot_0": np.inf, "rot_1": -np.inf, "rot_2": 0, "rot_3": 0},
+        {"rot_0": nan[0], "rot_1": nan[1], "rot_2": 1, "rot_3": 0},
+        {"f_dc_0": nan[0], "f_dc_1": nan[2], "f_dc_2": np.inf},
+        {"f_dc_0": -np.inf, "f_dc_1": 1e30, "f_dc_2": -1e30},
+        {"scale_0": np.inf, "scale_1": -np.inf, "scale_2": nan[1]},
+    ]
+    for at, row in enumerate(rows):
+        for name, value in row.items():
+            recs[name][at * 997] = value
+    return len(rows)
+
+
+def phase_ply_decode(device, ply: str) -> dict:
+    """The record decode (ops.plydecode, csrc/plydecode.cu) on the card over
+    every record of the SH export ``ply``, with plant_decode_edges' rows, a
+    block of CARD_BLOCK_ROWS rows at a time as the card load launches it:
+    bit-equal to its twin (ply_decode_torch on the host) and to the host
+    parse's _Planes.fill on the same bytes, with and without the SH plane,
+    compact colours and full; one launch a block.  Then timed on one block
+    (the main path's call: compact colours, no SH plane), launch alone and
+    through the wrapper, beside the twin and the host fill it replaces (both
+    on the host, where they run), and the bound; returns the record's numbers and the launches."""
+    import numpy as np
+    import torch
+
+    from gs2pc_torch.io import gaussians_io as G
+    from gs2pc_torch.io.ply import scalar_dtype
+    from gs2pc_torch.ops import cuda_build, plydecode
+    from gs2pc_torch.tools.bench_kernels import PLY_ENTRY, host_ms, kernel_ptxas, launch_ms
+
+    fmt, vertex, body = G._read_header(ply)
+    layout = G._card_layout(fmt, vertex, 3)
+    if layout is None:
+        fail("record decode: the SH export's header does not take the card path")
+    n, block = vertex.count, G.CARD_BLOCK_ROWS
+    recs = np.fromfile(ply, dtype=scalar_dtype(vertex, fmt), offset=body)
+    planted = plant_decode_edges(recs)
+    names = recs.dtype.names
+    host = torch.from_numpy(recs.view(np.uint8)).pin_memory()
+    records = host.to(device)
+    label = (f"the SH export's {n} records of {layout.stride} B, blocks of {block} rows, "
+             f"{planted} edge rows planted")
+    launches, seen = 0, []
+    for with_shs, compact in ((True, False), (False, True)):
+        fill = G._Planes(names, n, 3, with_shs, lambda name, shape: np.empty(shape, np.float32),
+                         compact)
+        fill.fill(recs, 0, span=G._untimed)
+        want = {"xyz": fill.xyz, "colours": fill.colours, "log_scales": fill.log_scales,
+                "rots": fill.rots}
+        if with_shs:
+            want["shs"] = fill.shs
+        twin = {k: torch.full(w.shape, float("nan")) for k, w in want.items()}
+        card = {k: torch.full(w.shape, float("nan"), device=device) for k, w in want.items()}
+        before = plydecode.ply_decode.launches
+        for lo in range(0, n, block):
+            rows = min(block, n - lo)
+            cut = slice(lo * layout.stride, (lo + rows) * layout.stride)
+            plydecode.ply_decode(records[cut], rows, lo, layout, card, compact)
+            plydecode.ply_decode_torch(host[cut], rows, lo, layout, twin, compact)
+        torch.cuda.synchronize()
+        got = plydecode.ply_decode.launches - before
+        launches += got
+        mode = f"{'with' if with_shs else 'without'} shs, {'compact' if compact else 'full'}"
+        if got != -(-n // block):
+            fail(f"record decode, {mode}: {got} launches for {-(-n // block)} blocks")
+        bad = {k: (plane_bits_differ(card[k], twin[k]), plane_bits_differ(card[k], want[k]))
+               for k in want}
+        if any(a or b for a, b in bad.values()):
+            fail(f"record decode vs twin and host fill, {label}, {mode}: differing elements "
+                 f"(twin, fill) {bad}")
+        seen.append(f"{mode} ({got} launches)")
+        del fill, want, twin, card
+    print(f"record decode vs twin and host fill, {label}: every plane equal bit for bit in "
+          f"{seen}", flush=True)
+
+    rows = min(block, n)
+    one = records[:rows * layout.stride]
+    shapes = {"xyz": (rows, 3), "colours": (rows, 3), "log_scales": (rows, 3), "rots": (rows, 4)}
+    planes = {k: torch.empty(s, dtype=torch.float32, device=device) for k, s in shapes.items()}
+    twin_planes = {k: torch.empty(s, dtype=torch.float32) for k, s in shapes.items()}
+    block_recs = recs[:rows]
+
+    def call():
+        plydecode.ply_decode(one, rows, 0, layout, planes, True)
+
+    def host_fill():
+        G._Planes(names, rows, 3, False, lambda name, shape: np.empty(shape, np.float32),
+                  True).fill(block_recs, 0, span=G._untimed)
+
+    before = plydecode.ply_decode.launches
+    ms = dict(
+        rows=rows, stride=layout.stride,
+        launch_ms=launch_ms(call, [PLY_ENTRY], 20)[PLY_ENTRY],
+        wrapper_ms=cuda_ms(call, 20),
+        plain_ms=host_ms(lambda: plydecode.ply_decode_torch(host, rows, 0, layout, twin_planes,
+                                                            True), 5),
+        host_fill_ms=host_ms(host_fill, 5),
+        bound=_bound(rows * (layout.stride + PLY_DECODE_WRITE_BYTES),
+                     rows * PLY_DECODE_OPS),
+        max_abs_err=0.0,
+        ptxas=kernel_ptxas(cuda_build.BUILD_INFO.get("log", ""), "ply_decode_kernel")
+        or "the library was built before this run",
+    )
+    torch.cuda.synchronize()
+    ms["launches"] = launches + plydecode.ply_decode.launches - before
+    print(f"timing, record decode, one block of {rows} records of {layout.stride} B (compact, "
+          f"no SH plane): launch alone {ms['launch_ms']:.4f} ms, through the wrapper "
+          f"{ms['wrapper_ms']:.4f} ms, twin on the host {ms['plain_ms']:.3f} ms, host fill "
+          f"{ms['host_fill_ms']:.3f} ms, bound {ms['bound'][0]:.4f} ms ({ms['bound'][1]}), "
+          f"{ms['bound'][0] / ms['launch_ms']:.1%} of the bound; ptxas: {ms['ptxas']}",
+          flush=True)
+    return ms
+
+
 def files_equal(a: str, b: str) -> bool:
     import filecmp
 
@@ -1694,21 +1858,29 @@ def phase_sh(device, work, arrays, plain_cols, tj, mask_dir):
     out, sweep = os.path.join(work, "cloud_sh.ply"), os.path.join(work, "sweep.npz")
     argv = e2e_argv(ply, tj, mask_dir, out) + [
         "--surface_distance_std", "1e6", "--sh_colour_eval", "--save_sweep", sweep]
-    saved = []
-    real_save = pipeline.save_accumulators
+    saved, loaded_scene = [], []
+    real_save, real_load = pipeline.save_accumulators, pipeline.load_gaussians
 
     def keep_saved(path, acc, *a, **kw):
         saved.append(acc)
         return real_save(path, acc, *a, **kw)
 
+    def keep_loaded(path, **kw):
+        scene = real_load(path, **kw)
+        loaded_scene.append((scene, kw))
+        return scene
+
     log.reset_phases()
     reset_launches()
     t0 = time.perf_counter()
-    with mock.patch.object(pipeline, "save_accumulators", keep_saved):
+    with mock.patch.object(pipeline, "save_accumulators", keep_saved), \
+            mock.patch.object(pipeline, "load_gaussians", keep_loaded):
         result = cli.main(argv)
     wall = time.perf_counter() - t0
     launches = read_launches()
-    want = conversion_launches(N_E2E_CAMERAS, 1)
+    hold_card_load(ply, *loaded_scene[0])
+    del loaded_scene
+    want = conversion_launches(N_E2E_CAMERAS, 1, decoded=N_E2E_GAUSSIANS)
     if launches != want:
         fail(f"SH conversion: kernel launches {launches}, expected {want}")
     n_file = check_cloud(result, out, "SH conversion")
@@ -1745,7 +1917,8 @@ def phase_sh(device, work, arrays, plain_cols, tj, mask_dir):
     writer = save_point_cloud_ply(res2.cloud, out2)
     wall2 = time.perf_counter() - t0
     resumed = read_launches()
-    if resumed != conversion_launches(0, 1, sweeps=False) or res2.sweep_diag is not None:
+    if (resumed != conversion_launches(0, 1, sweeps=False, decoded=N_E2E_GAUSSIANS)
+            or res2.sweep_diag is not None):
         fail(f"the resumed conversion rendered or did not sample on one card: {resumed}")
     same = files_equal(out, out2)
     print(f"resume (--load_sweep, no transforms): accumulators equal the saved ones bit for "
@@ -1754,9 +1927,36 @@ def phase_sh(device, work, arrays, plain_cols, tj, mask_dir):
           f"to the first byte for byte: {same}", flush=True)
     if not same:
         fail("the resumed conversion wrote another PLY")
-    for path in (out, out2, ply, sweep):
+    for path in (out, out2, sweep):
         os.remove(path)
-    return dict(wall=wall, phases=phases, launches=launches)
+    decode = phase_ply_decode(device, ply)
+    os.remove(ply)
+    decode["launches"] += launches["ply_decode"] + resumed["ply_decode"]
+    return dict(wall=wall, phases=phases, launches=launches, decode=decode)
+
+
+def hold_card_load(ply: str, scene, kw: dict) -> None:
+    """The planes load_gaussians decoded on the card (``scene``, loaded
+    with ``kw``) against load_ply_gaussians' host parse of ``ply`` with the
+    same options, bit for bit."""
+    from gs2pc_torch.io.gaussians_io import load_ply_gaussians
+
+    want = load_ply_gaussians(ply, max_sh_degree=kw["max_sh_degree"], with_shs=kw["with_shs"],
+                              compact_colours=kw["compact_colours"])
+    names = ("xyz", "log_scales", "rots", "colours", "opacities", "shs")
+    bad = {}
+    for name, w in zip(names, want):
+        got = getattr(scene, name)
+        if (got is None) != (w is None):
+            fail(f"SH conversion's load: {name} is {got} on the card, the host parse's {w}")
+        if got is not None:
+            bad[name] = plane_bits_differ(got, w)
+    if any(bad.values()):
+        fail(f"SH conversion's load: planes decoded on the card differ from the host parse's "
+             f"bit for bit, elements {bad}")
+    held = (f"{scene.num_gaussians} Gaussians, planes {sorted(bad)} equal to the host parse's "
+            f"bit for bit ({', '.join(f'{k}={v}' for k, v in sorted(kw.items()) if k != 'device')})")
+    print(f"SH conversion's load on the card: {held}", flush=True)
 
 
 def phase_k1_sh(device):
@@ -2526,7 +2726,7 @@ def main() -> int:
         phase_transfers(device, work, e2e, smi)
         del e2e["cloud"]
         files = (e2e["tj"], e2e["masks"])
-        phase_sh(device, work, arrays, e2e["cols_u8"], *files)
+        sh = phase_sh(device, work, arrays, e2e["cols_u8"], *files)
         phase_mesh(device, work, e2e["ply"], *files)
         phase_auto_capacity(device, work, e2e["ply"], *files)
         phase_preview(device, work, e2e["ply"], e2e["tj"])
@@ -2567,6 +2767,7 @@ def main() -> int:
             launches[name] += n
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    decode = sh["decode"]
 
     def entry(name, source, replaces, n, err, t, plain, bound, launch=None, library=None):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2604,6 +2805,9 @@ def main() -> int:
         entry("project_and_pack", "gs2pc_torch/csrc/project.cu", "gs2pc/ops/projection.py:47",
               launches["project_and_pack"], k6["max_abs_err"], k6["wrapper_ms"],
               k6["plain_ms"], k6["bound"], k6["launch_ms"]),
+        entry("ply_decode", "gs2pc_torch/csrc/plydecode.cu", "gs2pc/io/ply.py:157",
+              decode["launches"], decode["max_abs_err"], decode["wrapper_ms"],
+              decode["plain_ms"], decode["bound"], decode["launch_ms"]),
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,10 @@ over a few threads, each block read into its thread's buffer and its
 columns taken into every plane from there.  load_gaussians parses into
 host planes it allocates (pinned on a card), with the colours quantised as
 each block is filled, and once the parse has ended enqueues each plane's
-upload.
+upload.  On a card, an export whose records the decode kernel takes (a
+3DGS export of float32 fields, _card_layout) is decoded there instead: the
+threads read each block into pinned memory, take its opacities on the host
+and copy it over, and ops.plydecode fills every other plane on the card.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from numpy.lib.recfunctions import structured_to_unstructured
 from gs2pc_torch.io.ply import has_list, read_ply, read_ply_header, scalar_dtype
 from gs2pc_torch.io.splat import load_splat_gaussians
 from gs2pc_torch.models.gaussians import Gaussians
+from gs2pc_torch.ops import plydecode
 from gs2pc_torch.utils import log
 
 SH_C0 = 0.28209479177387814
@@ -39,6 +43,16 @@ SH_C0 = 0.28209479177387814
 # with blocks of 16,384 or 65,536 rows.
 BLOCK_ROWS = 32768
 MAX_WORKERS = 8
+# Rows of a block the card decodes (_decode_blocks).  Each block costs its
+# thread a read, the opacities, a copy and a launch, and the threads
+# contend for the interpreter and the CUDA driver on the Python and CUDA
+# calls, so blocks larger than the host parse's pay.  Measured on an H100
+# host's 8 cores, the bicycle-size export (6.1M rows, 1.51 GB) in seven
+# interleaved rounds: 0.192 s with blocks of 32,768 rows, 0.166 s with
+# 49,152, 0.152 s with 65,536 (the host parse: 0.492 s).  Each thread keeps
+# a block of device staging: 61,440 rows hold it under 128 MB (8 x 61,440
+# x 248 B = 122 MB).
+CARD_BLOCK_ROWS = 61440
 
 
 def _sorted_props(names, prefix):
@@ -110,8 +124,7 @@ class _Planes:
         with span("ply_columns"):
             _take(self.xyz[rows], rec, ("x", "y", "z"))
             if self.opacity:
-                raw = np.asarray(rec["opacity"], np.float32)
-                self.opacities[rows] = 1.0 / (1.0 + np.exp(-raw))
+                self.opacities[rows] = _sigmoid(rec["opacity"])
             if self.sh:
                 f_dc = _take(np.empty((rec.shape[0], 3), np.float32), rec,
                              ("f_dc_0", "f_dc_1", "f_dc_2"))
@@ -148,6 +161,12 @@ class _Planes:
             _quantise_u8(self.colours)
 
 
+def _sigmoid(raw: np.ndarray) -> np.ndarray:
+    """The opacities of the raw ``opacity`` field, in float32."""
+    raw = np.asarray(raw, np.float32)
+    return 1.0 / (1.0 + np.exp(-raw))
+
+
 def _untimed(name: str):
     return contextlib.nullcontext()
 
@@ -162,17 +181,45 @@ def _pread_full(fd: int, view: memoryview, offset: int) -> int:
     return got
 
 
+def _read_block(fd: int, view, path: str, body: int, lo: int, n: int, itemsize: int) -> None:
+    """Read rows lo.. of the ``n`` records of ``itemsize`` bytes at byte
+    ``body`` of ``path`` into ``view`` (as many as it holds)."""
+    got = _pread_full(fd, memoryview(view), body + lo * itemsize)
+    if got < len(view):
+        raise ValueError(f"{path}: the body ends at row {lo + got // itemsize}"
+                         f" of the {n} its header gives")
+
+
+def _workers(n_blocks: int) -> int:
+    """Threads for ``n_blocks`` blocks: min(cores, MAX_WORKERS, blocks)."""
+    cores = len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity") else os.cpu_count()
+    return max(1, min(cores or 1, MAX_WORKERS, n_blocks))
+
+
+def _spread(workers: int, run) -> None:
+    """run(k) for k < workers: run(0) on the calling thread, the others on
+    a pool alongside; waiting for them is ``ply_columns``."""
+    if workers == 1:
+        run(0)
+        return
+    with ThreadPoolExecutor(workers - 1, thread_name_prefix="gs2pc_ply") as pool:
+        others = [pool.submit(run, k) for k in range(1, workers)]
+        run(0)
+        with log.span("ply_columns"):
+            for done in others:
+                done.result()
+
+
 def _parse_blocks(path: str, body: int, dtype: np.dtype, n: int, planes: _Planes) -> int:
     """Fill ``planes`` from the ``n`` records of ``dtype`` at byte ``body``
     of ``path``, BLOCK_ROWS at a time; returns the blocks read.  Block k
-    goes to thread k mod T, T = min(cores, MAX_WORKERS, blocks); thread 0
-    is the caller, and only its blocks open spans (``ply_read`` the read,
-    then fill's), so the spans split the pass's wall as its share of the
-    blocks splits it, while the other threads run the same work alongside.
-    Waiting for them is ``ply_columns``."""
+    goes to thread k mod T, T = _workers(blocks); thread 0 is the caller,
+    and only its blocks open spans (``ply_read`` the read, then fill's), so
+    the spans split the pass's wall as its share of the blocks splits it,
+    while the other threads run the same work alongside.  Waiting for them
+    is ``ply_columns``."""
     starts = range(0, n, BLOCK_ROWS)
-    cores = len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity") else os.cpu_count()
-    workers = max(1, min(cores or 1, MAX_WORKERS, len(starts)))
+    workers = _workers(len(starts))
     fd = os.open(path, os.O_RDONLY)
 
     def run(k: int) -> None:
@@ -181,24 +228,95 @@ def _parse_blocks(path: str, body: int, dtype: np.dtype, n: int, planes: _Planes
         for lo in starts[k::workers]:
             size = min(BLOCK_ROWS, n - lo) * dtype.itemsize
             with span("ply_read"):
-                got = _pread_full(fd, memoryview(buf)[:size], body + lo * dtype.itemsize)
-            if got < size:
-                raise ValueError(f"{path}: the body ends at row {lo + got // dtype.itemsize}"
-                                 f" of the {n} its header gives")
+                _read_block(fd, buf[:size], path, body, lo, n, dtype.itemsize)
             planes.fill(buf[:size].view(dtype), lo, span)
 
     try:
-        if workers == 1:
-            run(0)
-        else:
-            with ThreadPoolExecutor(workers - 1, thread_name_prefix="gs2pc_ply") as pool:
-                others = [pool.submit(run, k) for k in range(1, workers)]
-                run(0)
-                with log.span("ply_columns"):
-                    for done in others:
-                        done.result()
+        _spread(workers, run)
     finally:
         os.close(fd)
+    return len(starts)
+
+
+def _card_layout(fmt: str, vertex, max_sh_degree: int):
+    """The decode's ops.plydecode.RecordLayout of ``vertex`` when a card
+    takes its records, else None: binary little-endian, every property a
+    scalar float32, x y z, f_dc_0..2 and opacity among them, scale_0..2 and
+    rot_0..3 just those (as _Planes sorts them), and the f_rest_* count
+    ``max_sh_degree`` gives, at most plydecode.MAX_REST.  Every other
+    layout (ascii, lists, RGB colours with their /255 decided over the whole
+    plane, doubles, fields filled with constants) takes the host path."""
+    names = vertex.property_names
+    if fmt != "binary_little_endian" or any(t != "f4" for _, t in vertex.properties):
+        return None
+    if not {"x", "y", "z", "f_dc_0", "f_dc_1", "f_dc_2", "opacity"} <= set(names):
+        return None
+    scales, rots = _sorted_props(names, "scale_"), _sorted_props(names, "rot")
+    if scales != [f"scale_{c}" for c in range(3)] or rots != [f"rot_{c}" for c in range(4)]:
+        return None
+    rest = _sorted_props(names, "f_rest_")
+    if len(rest) != 3 * (max_sh_degree + 1) ** 2 - 3 or len(rest) > plydecode.MAX_REST:
+        return None
+    dtype = scalar_dtype(vertex, fmt)
+    fields = ["x", "y", "z", "f_dc_0", "f_dc_1", "f_dc_2"] + scales + rots
+    return plydecode.RecordLayout(dtype.itemsize, tuple(dtype.fields[f][1] for f in fields),
+                                  tuple(dtype.fields[f][1] for f in rest))
+
+
+def _decode_blocks(path: str, body: int, dtype: np.dtype, n: int,
+                   layout: "plydecode.RecordLayout", planes: dict, opacities: np.ndarray,
+                   compact: bool) -> int:
+    """Fill the device planes ``planes`` (xyz, colours, [shs], log_scales,
+    rots) and the host plane ``opacities`` from the ``n`` records of
+    ``dtype`` at byte ``body`` of ``path``, CARD_BLOCK_ROWS at a time, over
+    _parse_blocks' threads; returns the blocks read.  Each thread reads its
+    blocks into two staging buffers in turn (pinned, from torch's caching
+    host allocator, on a card), reusing one only once its last copy has
+    ended; it computes the block's opacities (the host path's expression:
+    numpy's float32 exp, which no card function repeats bit for bit), then
+    on a stream of its own copies the block into its device staging and
+    launches ply_decode there.  The current stream waits for every
+    thread's stream before the staging is freed.  Spans as _parse_blocks':
+    ``ply_read`` the reads, ``ply_columns`` the opacities, the copy and the
+    launch, and the wait for the other threads.  Off a card (the tests) the
+    same steps run on CPU tensors, and ply_decode runs its twin."""
+    starts = range(0, n, CARD_BLOCK_ROWS)
+    workers = _workers(len(starts))
+    block = min(CARD_BLOCK_ROWS, n) * dtype.itemsize
+    device = planes["xyz"].device
+    cuda = device.type == "cuda"
+    staging = torch.empty((workers, block), dtype=torch.uint8, device=device)
+    streams = [torch.cuda.Stream(device) if cuda else None for _ in range(workers)]
+    fd = os.open(path, os.O_RDONLY)
+
+    def run(k: int) -> None:
+        span = log.span if k == 0 else _untimed
+        bufs = [torch.empty(block, dtype=torch.uint8, pin_memory=cuda) for _ in range(2)]
+        copied = [torch.cuda.Event() for _ in bufs] if cuda else None
+        with torch.cuda.stream(streams[k]) if cuda else contextlib.nullcontext():
+            for i, lo in enumerate(starts[k::workers]):
+                rows = min(CARD_BLOCK_ROWS, n - lo)
+                size = rows * dtype.itemsize
+                buf = bufs[i % 2][:size]
+                host = buf.numpy()
+                if cuda:
+                    copied[i % 2].synchronize()
+                with span("ply_read"):
+                    _read_block(fd, host, path, body, lo, n, dtype.itemsize)
+                with span("ply_columns"):
+                    opacities[lo:lo + rows] = _sigmoid(host.view(dtype)["opacity"])
+                    staging[k, :size].copy_(buf, non_blocking=True)
+                    if cuda:
+                        copied[i % 2].record()
+                    plydecode.ply_decode(staging[k], rows, lo, layout, planes, compact)
+
+    try:
+        _spread(workers, run)
+    finally:
+        os.close(fd)
+        if cuda:
+            for stream in streams:
+                torch.cuda.current_stream(device).wait_stream(stream)
     return len(starts)
 
 
@@ -232,13 +350,25 @@ def load_ply_gaussians(path: str, max_sh_degree: int = 3, with_shs: bool = True,
     decision, ``ply_sh_rest`` the f_dc and f_rest copy into ``shs``
     (entered, empty, when no shs is made); of the blocks, those of the
     calling thread."""
+    return _parse_on_host(path, *_read_header(path), max_sh_degree, with_shs,
+                          alloc or (lambda name, shape: np.empty(shape, np.float32)),
+                          compact_colours)
+
+
+def _read_header(path: str):
+    """(format, vertex element, byte offset of the body) of the .ply at
+    ``path``; span ``ply_read``."""
     with log.span("ply_read"):
         with open(path, "rb") as fh:
             fmt, elements = read_ply_header(fh, path)
-            body = fh.tell()
-    vertex = elements[0]
-    planes = _Planes(vertex.property_names, vertex.count, max_sh_degree, with_shs,
-                     alloc or (lambda name, shape: np.empty(shape, np.float32)), compact_colours)
+            return fmt, elements[0], fh.tell()
+
+
+def _parse_on_host(path: str, fmt: str, vertex, body: int, max_sh_degree: int, with_shs: bool,
+                   alloc, compact_colours: bool):
+    """load_ply_gaussians after its header."""
+    planes = _Planes(vertex.property_names, vertex.count, max_sh_degree, with_shs, alloc,
+                     compact_colours)
     blocked = fmt != "ascii" and not has_list(vertex)
     if blocked:
         n_blocks = _parse_blocks(path, body, scalar_dtype(vertex, fmt), vertex.count, planes)
@@ -257,6 +387,31 @@ def load_ply_gaussians(path: str, max_sh_degree: int = 3, with_shs: bool = True,
         planes.finish()
     return (planes.xyz, planes.log_scales, planes.rots, planes.colours, planes.opacities,
             planes.shs)
+
+
+def _decode_on_card(path: str, fmt: str, vertex, body: int, layout, with_shs: bool,
+                    compact_colours: bool, alloc, device: torch.device) -> dict:
+    """The planes of an export that _card_layout takes, decoded on
+    ``device`` (_decode_blocks), by name: xyz, colours, shs (only
+    ``with_shs``), log_scales, rots, allocated there in that order; the
+    opacities go into ``alloc("opacities", (n,))``.  Spans and log line as
+    load_ply_gaussians' (the reader "blocks_card"); ``ply_sh_rest`` is
+    entered once, empty, the kernel copying the SH coefficients."""
+    n = vertex.count
+    opacities = alloc("opacities", (n,))
+    f32 = dict(dtype=torch.float32, device=device)
+    planes = {"xyz": torch.empty((n, 3), **f32), "colours": torch.empty((n, 3), **f32)}
+    if with_shs:
+        planes["shs"] = torch.empty((n, 3, len(layout.rest) // 3 + 1), **f32)
+    planes["log_scales"] = torch.empty((n, 3), **f32)
+    planes["rots"] = torch.empty((n, 4), **f32)
+    n_blocks = _decode_blocks(path, body, scalar_dtype(vertex, fmt), n, layout, planes,
+                              opacities, compact_colours)
+    with log.span("ply_sh_rest"):
+        pass
+    log.info(f"[gs2pc_torch] ply parse: blocks_card reader, {n_blocks} blocks, "
+             f"f_rest {'copied' if with_shs else 'skipped'}")
+    return planes
 
 
 def _quantise_u8(c: np.ndarray) -> np.ndarray:
@@ -304,18 +459,21 @@ def load_gaussians(
     degree-3 scene of 3M Gaussians carries 576 MB of them.
 
     The scene is parsed into host planes allocated here (_HostPlanes): a
-    .ply by load_ply_gaussians, a .splat by load_splat_gaussians and then
-    copied in.  Each plane's upload is then enqueued on the current stream
-    (non-blocking from pinned memory on a card; off a card the tensor is
-    the plane itself), which orders it before every later use, and torch's
-    host allocator reuses no pinned block before its copy has finished.
-    The span ``plane_upload`` times the enqueues, and a .splat's copy into
-    its planes."""
+    .ply as load_ply_gaussians parses it, a .splat by load_splat_gaussians
+    and then copied in.  Each plane's upload is then enqueued on the current
+    stream (non-blocking from pinned memory on a card; off a card the tensor
+    is the plane itself), which orders it before every later use, and
+    torch's host allocator reuses no pinned block before its copy has
+    finished.  The span ``plane_upload`` times the enqueues, and a .splat's
+    copy into its planes.  On a card a .ply whose header _card_layout takes
+    is decoded there (_decode_on_card), bit for bit as the host parse
+    would fill its planes: only its opacities pass through a host plane."""
     ext = os.path.splitext(input_path)[1]
     if ext not in (".splat", ".ply"):
         raise ValueError(f"Unsupported input type {ext}")
     device = torch.device(device)
     host = _HostPlanes(device)
+    decoded: dict = {}
     with log.phase("scene_parse"):
         if ext == ".splat":
             xyz, log_scales, rots, colours, opacities, _ = load_splat_gaussians(input_path)
@@ -327,11 +485,18 @@ def load_gaussians(
                 if compact_colours:
                     _quantise_u8(host.tensors["colours"].numpy())
         else:
-            load_ply_gaussians(input_path, max_sh_degree=max_sh_degree, with_shs=with_shs,
-                               alloc=host, compact_colours=compact_colours)
+            fmt, vertex, body = _read_header(input_path)
+            layout = _card_layout(fmt, vertex, max_sh_degree) if device.type == "cuda" else None
+            if layout is None:
+                _parse_on_host(input_path, fmt, vertex, body, max_sh_degree, with_shs, host,
+                               compact_colours)
+            else:
+                decoded = _decode_on_card(input_path, fmt, vertex, body, layout, with_shs,
+                                          compact_colours, host, device)
         with log.span("plane_upload"):
             p = {name: plane.to(device, non_blocking=True)
                  for name, plane in host.tensors.items()}
+        p.update(decoded)
     with log.phase("scene_upload"):
         return Gaussians(
             xyz=p["xyz"], log_scales=p["log_scales"], rots=p["rots"],

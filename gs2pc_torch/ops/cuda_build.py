@@ -77,6 +77,9 @@ _SIGNATURES = {
     # means, factors, opacities, alive, colours, the camera's six tensors;
     # P, width, height, adaptive, lanes; the eleven outputs; the stream.
     "gs2pc_project_pack": (_I, [_P] * 11 + [_I] * 5 + [_P] * 11 + [_P]),
+    # records, rows, offsets (host int32), their count, lo, compact; xyz,
+    # colours, log_scales, rots, shs (or NULL); the stream.
+    "gs2pc_ply_decode": (_I, [_P, _I, _P, _I, ctypes.c_longlong, _I] + [_P] * 6),
 }
 
 

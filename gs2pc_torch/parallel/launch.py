@@ -41,8 +41,8 @@ utils.log.PHASE_SECONDS) to rank 0, which files them as
 Rank 0 adds what the pool costs a job as two spans: ``spmd_dispatch``
 (handing the job to the ranks) and ``spmd_report`` (the wait, after ``fn``
 returns on rank 0, for every rank's report).  Each spawned rank also
-reports its launches of the conversion's kernels in the job (K1, K2, K5
-and K6, kernel_launches), which rank 0 adds to RANK_LAUNCHES: the
+reports its launches of the conversion's kernels in the job (K1, K2, K5,
+K6 and the record decode, kernel_launches), which rank 0 adds to RANK_LAUNCHES: the
 wrappers' own counts in this process are rank 0's alone.
 
 A rank that raises fails the run: rank 0 stops every other rank at once
@@ -94,14 +94,15 @@ _POOL: Optional["_Pool"] = None
 def kernel_launches() -> dict:
     """This process's launches of the conversion's kernels, by wrapper
     (each wrapper counts its own launches; see gs2pc_torch.ops)."""
-    from gs2pc_torch.ops import blend_kernel, projection, rasterize, sampler
+    from gs2pc_torch.ops import blend_kernel, plydecode, projection, rasterize, sampler
 
     return {"blend_tiles": blend_kernel.blend_tiles.launches,
             "duplicate_with_keys": rasterize.duplicate_with_keys.launches,
             "order_pairs": rasterize.order_pairs.launches,
             "sample_points": sampler.sample_points.launches,
             "project_and_pack": projection.project_and_pack.launches,
-            "preprocess": projection.preprocess.launches}
+            "preprocess": projection.preprocess.launches,
+            "ply_decode": plydecode.ply_decode.launches}
 
 
 class RemoteTraceback(Exception):

@@ -7,7 +7,10 @@ PRNGKey(0); K6, the per-camera front end, on camera 0 of that scene (full
 rect, compact table) beside its twin (a checkout without K6: the eager
 preprocess + pack_blend_table it runs instead); and the probes at the
 tools' shapes: K3 per op on the seeded uniform block of cuda_probe, K4 at
-level 6 on the seeded input of cuda_probe2.
+level 6 on the seeded input of cuda_probe2; and the scene load's record
+decode (ops.plydecode) on one block of a degree-3 INRIA export
+(CARD_BLOCK_ROWS records of 248 B) beside the block's pinned copy to the card,
+its twin, and the host parse's fill of the same block, which it replaces.
 
 Each kernel is timed two ways with CUDA events, the mean over ``--reps``
 after a warm-up (ten times as many for the probes): through its wrapper
@@ -20,7 +23,8 @@ probes: their kernels' own device time (torch.profiler), the floor (an
 empty kernel's entry point replayed the same way, before and after them),
 and the PyTorch calls that compute K3's roll and scan (torch.roll,
 torch.cumprod), which the port never calls.  ``--gaussians 0`` times the
-probes alone; ``--kernels`` picks which of probes, k1, k2, k5 and k6 run.
+probes alone; ``--kernels`` picks which of probes, k1, k2, k5, k6 and ply
+run.
 
     python gs2pc_torch/tools/bench_kernels.py [--root DIR] [--e2e N [--profile]
         [--num_devices N] [--e2e_only]] [--gaussians 3000000] [--kernels k5]
@@ -59,8 +63,11 @@ K4_ENTRY = "gs2pc_probe_blend"
 FLOOR_ENTRY = "gs2pc_probe_floor"
 K5_ENTRY = "gs2pc_sample_points"
 K6_ENTRY = "gs2pc_project_pack"
+PLY_ENTRY = "gs2pc_ply_decode"
 N_POINTS = 10_000_000
-KERNELS = ("probes", "k1", "k2", "k5", "k6")
+KERNELS = ("probes", "k1", "k2", "k5", "k6", "ply")
+# H100 SXM's device memory bandwidth, bytes/s (the bound of the record decode).
+HBM_BYTES_PER_S = 3.35e12
 # K3's ops that one PyTorch call computes (x is the (256, 128) block).
 K3_LIBRARY = {"roll": lambda x: x.roll(4, 1), "scan": lambda x: x.cumprod(1)}
 
@@ -272,6 +279,64 @@ def time_k6(n_gaussians: int, device, reps: int) -> dict:
     return {"launch_ms": launch_ms(call, [K6_ENTRY], reps)[K6_ENTRY],
             "wrapper_ms": cuda_ms(call, reps), "plain_ms": cuda_ms(twin, max(reps // 4, 1)),
             "route": "k6"}
+
+
+def host_ms(fn, reps: int) -> float:
+    """Mean host milliseconds of ``fn`` over ``reps`` calls after a warm-up."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def time_ply_decode(device, reps: int) -> dict:
+    """The record decode on one block of a degree-3 INRIA export (normals
+    and all, 248 B a record; seeded normal values), compact colours and no
+    SH plane, as the card load runs it: launch alone and through the
+    wrapper; the block's pinned copy to the card; the twin on the host; and
+    the host parse's fill of the same block (gaussians_io._Planes.fill),
+    which it replaces.  The bound: 248 B read and 52 B (xyz, colours,
+    log_scales, rots) written a row at the card's bandwidth."""
+    import numpy as np
+    import torch
+
+    from gs2pc_torch.io import gaussians_io as G
+    from gs2pc_torch.io.ply import PlyElement
+    from gs2pc_torch.ops import plydecode
+
+    names = (["x", "y", "z", "nx", "ny", "nz"] + [f"f_dc_{i}" for i in range(3)]
+             + [f"f_rest_{i}" for i in range(45)] + ["opacity"]
+             + [f"scale_{i}" for i in range(3)] + [f"rot_{i}" for i in range(4)])
+    rows = G.CARD_BLOCK_ROWS
+    recs = np.zeros(rows, [(p, "<f4") for p in names])
+    rng = np.random.default_rng(0)
+    for p in names:
+        recs[p] = rng.normal(size=rows)
+    vertex = PlyElement("vertex", rows)
+    vertex.properties = [(p, "f4") for p in names]
+    layout = G._card_layout("binary_little_endian", vertex, 3)
+    host = torch.from_numpy(recs.view(np.uint8).copy()).pin_memory()
+    records = host.to(device)
+    shapes = {"xyz": (rows, 3), "colours": (rows, 3), "log_scales": (rows, 3), "rots": (rows, 4)}
+    planes = {k: torch.empty(s, dtype=torch.float32, device=device) for k, s in shapes.items()}
+    cpu_planes = {k: torch.empty(s, dtype=torch.float32) for k, s in shapes.items()}
+
+    def call():
+        plydecode.ply_decode(records, rows, 0, layout, planes, True)
+
+    def fill():
+        G._Planes(names, rows, 3, False, lambda n, s: np.empty(s, np.float32), True).fill(
+            recs, 0, span=G._untimed)
+
+    return {"rows": rows, "stride": layout.stride,
+            "launch_ms": launch_ms(call, [PLY_ENTRY], reps)[PLY_ENTRY],
+            "wrapper_ms": cuda_ms(call, reps),
+            "copy_ms": cuda_ms(lambda: records.copy_(host, non_blocking=True), reps),
+            "plain_ms": host_ms(lambda: plydecode.ply_decode_torch(
+                host, rows, 0, layout, cpu_planes, True), max(reps // 4, 1)),
+            "host_fill_ms": host_ms(fill, reps),
+            "bound_ms": rows * (layout.stride + 52) / HBM_BYTES_PER_S * 1e3}
 
 
 def _device_us(e) -> float:
@@ -571,7 +636,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
            **{f"{k}_ptxas": kernel_ptxas(log, name) for k, name in (
                ("k1", "blend_tiles_kernel"), ("k3", "probe_op_kernel"),
                ("k4", "probe_blend_kernel"), ("k5", "sample_points_kernel"),
-               ("k6", "project_pack_kernel"))}}
+               ("k6", "project_pack_kernel"), ("ply", "ply_decode_kernel"))}}
     if "probes" in kernels:
         rec["probes"] = time_probes(device, 10 * args.reps)
     if kernels & {"k1", "k2"}:
@@ -591,6 +656,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         rec["k5"] = time_k5(args.gaussians, device, args.reps)
     if "k6" in kernels:
         rec["k6"] = time_k6(args.gaussians, device, args.reps)
+    if "ply" in kernels:
+        rec["ply"] = time_ply_decode(device, args.reps)
     if args.e2e and args.gaussians:
         extra = [] if args.num_devices is None else ["--num_devices", str(args.num_devices)]
         rec["cards"] = torch.cuda.device_count()

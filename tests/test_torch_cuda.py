@@ -26,9 +26,11 @@ from gs2pc_torch.utils import capture
 from gs2pc_torch.utils.config import GaussPointCloudSettings, RenderConfig
 from frontend_cases import CASES as K6_CASES
 from frontend_cases import bits_differ, frontend_inputs
+from ply_decode_cases import INRIA, assert_bits_equal, card_layout, records, write_ply
 
-# frontend_cases comes from this directory (pytest puts it on sys.path): a
-# GPU machine may have another top-level ``tests`` package installed.
+# frontend_cases and ply_decode_cases come from this directory (pytest puts
+# it on sys.path): a GPU machine may have another top-level ``tests``
+# package installed.
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
 
@@ -915,13 +917,15 @@ def test_k5_output_streams_without_a_sync(cuda, tmp_path):
 @pytest.mark.parametrize("case", ["rgb", "rgb_compact", "sh", "sh_with_shs", "sh_compact",
                                   "splat", "splat_compact"])
 def test_hooked_upload_equals_from_numpy_on_card(cuda, tmp_path, monkeypatch, case):
-    """load_gaussians on the card (a .ply parsed into the pinned host
+    """load_gaussians on the card (an RGB .ply parsed into the pinned host
     planes it allocates, a .splat copied into them after its parse, each
-    uploaded from there once the parse has ended) gives from_numpy's scene
-    of the parsed arrays bit for bit, usable on the current stream without
-    a synchronise."""
+    uploaded from there once the parse has ended; an SH .ply decoded on the
+    card, only its opacities through a pinned host plane) gives from_numpy's
+    scene of the parsed arrays bit for bit, usable on the current stream
+    without a synchronise; the record decode runs only for the SH .ply."""
     from gs2pc_torch.io import gaussians_io
     from gs2pc_torch.io.splat import load_splat_gaussians, save_splat
+    from gs2pc_torch.ops import plydecode
 
     pinned = []
     real = gaussians_io._HostPlanes.__call__
@@ -943,11 +947,14 @@ def test_hooked_upload_equals_from_numpy_on_card(cuda, tmp_path, monkeypatch, ca
     else:
         _write_sh_ply(path, a)
     compact, with_shs = case.endswith("compact"), case.endswith("with_shs")
+    before = plydecode.ply_decode.launches
     got = gaussians_io.load_gaussians(path, compact_colours=compact, with_shs=with_shs,
                                       device=cuda)
+    decoded = plydecode.ply_decode.launches - before
     names = ["xyz", "opacities", "colours"] + ["shs"] * with_shs + ["log_scales", "rots"]
-    assert [n for n, _ in pinned] == names
+    assert [n for n, _ in pinned] == (["opacities"] if kind == "sh" else names)
     assert all(p for _, p in pinned), pinned
+    assert decoded == (-(-50_000 // gaussians_io.CARD_BLOCK_ROWS) if kind == "sh" else 0)
     parsed = (load_splat_gaussians(path) if kind == "splat"
               else gaussians_io.load_ply_gaussians(path))
     xyz, ls, rots, cols, op, shs = parsed
@@ -961,6 +968,103 @@ def test_hooked_upload_equals_from_numpy_on_card(cuda, tmp_path, monkeypatch, ca
             assert x is None, name
         else:
             assert x.device == y.device and torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("with_shs", [False, True], ids=["no_shs", "shs"])
+@pytest.mark.parametrize("compact", [False, True], ids=["full", "compact"])
+def test_ply_decode_kernel_matches_twin(cuda, compact, with_shs):
+    """The record decode (csrc/plydecode.cu) on a 300,000-row INRIA export
+    with the edge rows (NaN payloads, infinities, zero and negative-w
+    quaternions, quantisation ties), a block of CARD_BLOCK_ROWS at a time at its
+    rows, equals its twin and the host parse bit for bit, one launch a
+    block."""
+    from gs2pc_torch.io import gaussians_io
+    from gs2pc_torch.ops import plydecode
+    from ply_decode_cases import host_planes
+
+    n, block = 300_000, gaussians_io.CARD_BLOCK_ROWS
+    recs = records(INRIA, n, seed=21, edges=True)
+    layout = card_layout(recs, 3)
+    raw = torch.from_numpy(recs.view(np.uint8).copy())
+    on_card = raw.to(cuda)
+    want = host_planes(recs, 3, with_shs, compact)
+    twin = {k: torch.full(w.shape, float("nan")) for k, w in want.items() if w is not None}
+    card = {k: t.to(cuda) for k, t in twin.items()}
+    before = plydecode.ply_decode.launches
+    for lo in range(0, n, block):
+        rows = min(block, n - lo)
+        cut = slice(lo * layout.stride, (lo + rows) * layout.stride)
+        plydecode.ply_decode(on_card[cut], rows, lo, layout, card, compact)
+        plydecode.ply_decode(raw[cut], rows, lo, layout, twin, compact)
+    torch.cuda.synchronize()
+    assert plydecode.ply_decode.launches == before + -(-n // block)
+    for name in twin:
+        assert_bits_equal(card[name].cpu().numpy(), twin[name].numpy(), name)
+        assert_bits_equal(card[name].cpu().numpy(), want[name], name)
+
+
+@pytest.mark.parametrize("case", ["no_shs", "compact", "shs_compact"])
+def test_card_load_equals_the_host_parse(cuda, tmp_path, monkeypatch, case):
+    """load_gaussians on the card decodes an INRIA export there (the edge
+    rows among 100,003, the last block partial, blocks on several threads):
+    every plane bit-equal to the host parse's (load_ply_gaussians), one
+    decode a block, the "blocks_card" reader logged; and the device
+    staging freed, the current stream after every thread's work."""
+    from gs2pc_torch.io import gaussians_io
+    from gs2pc_torch.ops import plydecode
+    from gs2pc_torch.utils import log
+
+    n = 100_003
+    path = write_ply(tmp_path / "scene.ply", records(INRIA, n, seed=22, edges=True))
+    monkeypatch.setattr(gaussians_io, "CARD_BLOCK_ROWS", 4096)
+    compact, with_shs = "compact" in case, case.startswith("shs")
+    lines = []
+    monkeypatch.setattr(log, "info", lambda msg="": lines.append(msg))
+    live = torch.cuda.memory_stats(cuda)["allocation.all.current"]
+    before = plydecode.ply_decode.launches
+    got = gaussians_io.load_gaussians(path, compact_colours=compact, with_shs=with_shs,
+                                      device=cuda)
+    # The planes and the keep mask are all the load leaves allocated.
+    assert torch.cuda.memory_stats(cuda)["allocation.all.current"] - live == 6 + with_shs
+    blocks = -(-n // 4096)
+    assert plydecode.ply_decode.launches == before + blocks
+    assert lines == [f"[gs2pc_torch] ply parse: blocks_card reader, {blocks} blocks, "
+                     f"f_rest {'copied' if with_shs else 'skipped'}"]
+    want = gaussians_io.load_ply_gaussians(path, with_shs=with_shs, compact_colours=compact)
+    for name, w in zip(("xyz", "log_scales", "rots", "colours", "opacities", "shs"), want):
+        x = getattr(got, name)
+        if not with_shs and name == "shs":
+            assert x is None
+            continue
+        assert_bits_equal(x.cpu().numpy(), w, name)
+
+
+def test_conversion_with_card_decode_writes_the_host_paths_ply(cuda, tmp_path, monkeypatch):
+    """A conversion of an SH export through cli.main, its records decoded on
+    the card, writes the PLY the host parse's conversion writes, byte for
+    byte."""
+    from gs2pc_torch import cli
+    from gs2pc_torch.io import gaussians_io
+    from gs2pc_torch.ops import plydecode
+
+    a = capture.make_scene_arrays(40_000, seed=4)
+    transforms, intr = capture.make_poses(3, 128, 96)
+    ply, tj, _ = capture.write_capture(str(tmp_path), a, transforms, intr, with_masks=False)
+    _write_sh_ply(ply, a)
+
+    def convert(out):
+        cli.main(["--input_path", ply, "--transform_path", tj, "--output_path", out,
+                  "--num_points", "30000", "--seed", "0", "--quiet", "--num_devices", "1"])
+        return open(out, "rb").read()
+
+    before = plydecode.ply_decode.launches
+    blocks = -(-40_000 // gaussians_io.CARD_BLOCK_ROWS)
+    card = convert(str(tmp_path / "card.ply"))
+    assert plydecode.ply_decode.launches == before + blocks
+    monkeypatch.setattr(gaussians_io, "_card_layout", lambda *args: None)
+    host = convert(str(tmp_path / "host.ply"))
+    assert plydecode.ply_decode.launches == before + blocks
+    assert len(card) > 1000 and card == host
 
 
 def _write_sh_ply(path, a):

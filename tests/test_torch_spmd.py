@@ -178,12 +178,13 @@ def test_spmd_conversion_writes_the_walks_ply(spmd, capture, tmp_path):
 
 
 def test_spawned_ranks_report_their_launches(spmd):
-    """Every spawned rank reports its K1, K2, key sort, K5 and K6 launches to
-    rank 0 (launch.RANK_LAUNCHES): none here, where the wrappers run their
-    twins on the CPU tensors."""
+    """Every spawned rank reports its K1, K2, key sort, K5, K6 and record
+    decode launches to rank 0 (launch.RANK_LAUNCHES): none here, where the
+    wrappers run their twins on the CPU tensors."""
     assert set(launch.kernel_launches()) == {"blend_tiles", "duplicate_with_keys",
                                              "order_pairs", "sample_points",
-                                             "project_and_pack", "preprocess"}
+                                             "project_and_pack", "preprocess",
+                                             "ply_decode"}
     want = {name: 0 for name in launch.kernel_launches()}
     assert spmd["spawned"] == {r: want for r in range(1, spmd["world"])}
 
